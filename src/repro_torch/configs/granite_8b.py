@@ -1,0 +1,25 @@
+"""granite-8b [dense] — 36L d_model=4096 32H (GQA kv=8) d_ff=14336
+vocab=49152 — llama-arch, code [arXiv:2405.04324; hf]."""
+
+import dataclasses
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-8b",
+    family="dense",
+    num_layers=36,
+    d_model=4096,
+    d_ff=14336,
+    vocab_size=49152,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+)
+
+
+def smoke_config() -> ModelConfig:
+    return dataclasses.replace(
+        CONFIG, num_layers=2, d_model=64, d_ff=128, vocab_size=256,
+        num_heads=4, num_kv_heads=2, head_dim=16, dtype="float32",
+        param_dtype="float32")

@@ -1,0 +1,58 @@
+"""The port stands alone: no module of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports jax or the JAX package, and importing the
+kernels' entry points builds and loads nothing (the build is lazy, at
+first launch)."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_guard_sees_the_whole_port():
+    names = {p.name for p in PORT_FILES}
+    assert {"flash_attention.py", "engine.py", "serve.py",
+            "chip_smoke.py"} <= names
+
+
+def test_kernel_entry_points_import_lazily():
+    code = (
+        "import sys, json\n"
+        "import repro_torch.kernels.ops, repro_torch.launch.serve\n"
+        "from repro_torch.kernels import _build, flash_attention\n"
+        "print(json.dumps({'mods': [m for m in ('triton', "
+        "'torch.utils.cpp_extension', 'jax', 'repro') if m in sys.modules],"
+        " 'libs': len(_build._libs), 'lib': flash_attention._lib is None}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"mods": [], "libs": 0, "lib": True}
