@@ -1,26 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch port's paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
-nvidia-smi. It builds every kernel of the path from
+nvidia-smi. It builds every kernel of the port from
 ``src/repro_torch/kernels/csrc/`` into ``build/repro_torch/``. Each phase
 prints one JSON record on a line of its own; any failure raises and exits
 non-zero. Phases:
 
   device   the card's name and power limit (nvidia-smi) and torch's name
-  build    every kernel, one nvcc each, started together; ptxas registers,
-           shared memory and spills
-  check    each kernel against its plain PyTorch version on the card, at
-           granite-8b's head shapes, in bfloat16 and float32
+  build    all five kernels, one nvcc each, started together; ptxas
+           registers, shared memory and spills
+  check    the flash kernel against its plain PyTorch version on the card,
+           at granite-8b's head shapes, in bfloat16 and float32
   times    kernel, plain version, the PyTorch library call and the bound
   serving  full-width granite-8b (36 layers, random bf16 weights from a
            seed) through the launcher's fixed-batch loop and its dense
            engine; every prefill must launch the flash kernel once per
-           layer, and flash prefill logits must match the "ref" path's;
-           then a warm prefill and a warm run of decode steps under
-           torch.profiler, for the device's busy time beside the wall time
+           layer, and flash prefill logits must match the "ref" path's in
+           float32; then a warm prefill and a warm run of decode steps
+           under torch.profiler, for the device's busy time beside the wall
+           time
+  check    the measurement kernels (pchase, memcpy, dbuf_copy, strided)
+           against their plain versions on the card, exactly, at the
+           paper's sizes (1 GiB copies, a 64 MB chase), and each
+           divisibility ValueError on CUDA tensors
+  times    the same kernels' ms beside plain, library and bound ms
+  measure  the paper's measurement path end to end: P-chase cycles per
+           access at L1, L2 and device-memory footprints (gated L1 < L2 <
+           device memory), Wong's and Saavedra's curves through the trace
+           backend with their classic readings, copy throughput, the
+           dbuf_copy depth curve and the strided probe's stride curve
 
 Then one line ``{"kernels": [...]}``, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -43,10 +54,16 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 on the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:95
-#: flash vs "ref" prefill logits of full-depth granite-8b in bf16:
-#: relative RMS difference. The two attention paths round to bf16 at
-#: different places and 36 layers carry the difference on.
-LOGITS_REL_RMS_TOL = 2e-2
+#: flash vs "ref" prefill logits of full-depth granite-8b, both run in
+#: float32 on the same weights (bf16 -> f32 is exact): relative RMS
+#: difference. The kernel's own f32 error is about 5e-7 of a unit
+#: attention output; 36 layers of random weights may grow it by orders of
+#: magnitude and stay below 1e-3, while a wrong kernel (a mask, a scale, a
+#: GQA row off) moves the logits by O(1). The bf16 value is printed, not
+#: gated: there the two paths round at different places.
+LOGITS_REL_RMS_TOL = 1e-3
+KERNELS = ["flash_attention", "pchase", "memcpy", "dbuf_copy", "strided"]
+GIB = 1 << 30
 
 
 def record(phase: str, **fields) -> None:
@@ -151,6 +168,271 @@ def ptxas_summary(log: str) -> list[dict]:
     return out
 
 
+def single_cycle(torch, n: int, gen, dev):
+    """A chase array whose pointers form one random cycle through all n."""
+    perm = torch.randperm(n, generator=gen, device=dev)
+    a = torch.empty(n, dtype=torch.int32, device=dev)
+    a[perm] = torch.roll(perm, -1).to(torch.int32)
+    return a
+
+
+def spread(torch, cycles) -> dict:
+    c = cycles.double()
+    return {"median": c.median().item(),
+            "p90": torch.quantile(c, 0.9).item(), "n": c.numel()}
+
+
+def finite_curve(name: str, curve: dict) -> dict:
+    import math
+    check(all(math.isfinite(v) and v >= 0 for v in curve.values()),
+          f"{name} curve has a negative or non-finite value: {curve}")
+    return {str(k): v for k, v in curve.items()}
+
+
+def measurement(torch, dev, card: str) -> list[dict]:
+    """The paper's measurement path: check each kernel against its plain
+    version, time it, then drive the path end to end with the launch
+    counts set to 0 just before. Returns the kernels' records."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.core import classic
+    from repro_torch.core import pchase as chase
+    from repro_torch.kernels import dbuf_copy as dbuf
+    from repro_torch.kernels import memcpy as mc
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pchase as pc
+    from repro_torch.kernels import strided as st
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rng = np.random.default_rng(1)
+
+    def exact(name, got, want, **info):
+        ok = (got.dtype == want.dtype and got.shape == want.shape
+              and torch.equal(got, want))
+        record("check", kernel=name, exact=ok, **info)
+        check(ok, f"{name} disagrees with its plain version ({info})")
+
+    def randn(shape, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # -- check: each kernel against its plain version, exactly ----------------
+    for n, s in ((64, 4), (128, 8), (96, 12), (1024, 32)):
+        a, k = pc.uniform_init(n, s, dev), 2 * n // s
+        exact("pchase", pc.pchase_trace(a, iterations=k),
+              pc.pchase_trace_plain(a, iterations=k),
+              case=f"uniform n={n} s={s} k={k}")
+    a = torch.from_numpy(rng.permutation(256).astype(np.int32)).to(dev)
+    exact("pchase", pc.pchase_trace(a, iterations=300),
+          pc.pchase_trace_plain(a, iterations=300),
+          case="permutation n=256 k=300")
+    a = pc.uniform_init(64, 4, dev)
+    exact("pchase", pc.pchase_trace(a, 8, iterations=10),
+          pc.pchase_trace_plain(a, 8, iterations=10),
+          case="uniform n=64 s=4 k=10 start=8")
+    chase_k = 1 << 16
+    big = single_cycle(torch, 16 << 20, gen, dev)          # 64 MB of int32
+    big_plain = pc.pchase_trace_plain(big, iterations=chase_k)
+    exact("pchase", pc.pchase_trace(big, iterations=chase_k), big_plain,
+          case=f"single-cycle permutation, 64 MB, k={chase_k}")
+    big_cycles = pc.pchase_trace_cycles(big, iterations=chase_k)
+    exact("pchase", big_cycles.indices, big_plain,
+          case=f"pchase_trace_cycles, 64 MB, k={chase_k}")
+
+    copy_cases = [((512, 128), 128), ((1024, 256), 256), ((256, 512), 64)]
+    for dtype, cols in ((torch.float32, 1024), (torch.bfloat16, 2048),
+                        (torch.int8, 4096)):
+        x = randn((GIB // (cols * dtype.itemsize), cols), dtype)
+        exact("memcpy", mc.memcpy(x), mc.memcpy_plain(x), dtype=str(dtype),
+              shape=list(x.shape), block_rows=256)
+        for shape, block in copy_cases:
+            y = randn(shape, dtype)
+            exact("memcpy", mc.memcpy(y, block_rows=block),
+                  mc.memcpy_plain(y), dtype=str(dtype), shape=list(shape),
+                  block_rows=block)
+        del x
+    x1g = randn((GIB // 4096, 1024), torch.float32)
+    for nb in (1, 2, 3, 4):
+        exact("dbuf_copy", dbuf.dbuf_copy(x1g, num_buffers=nb),
+              dbuf.dbuf_copy_plain(x1g, num_buffers=nb),
+              shape=list(x1g.shape), num_buffers=nb)
+    two = randn((32, 256), torch.float32)        # 32 KB: two blocks, two tiles
+    exact("dbuf_copy", dbuf.dbuf_copy(two, block_rows=16, num_buffers=4),
+          dbuf.dbuf_copy_plain(two, block_rows=16, num_buffers=4),
+          shape=[32, 256], block_rows=16, num_buffers=4)
+    for n in (32, 64, 128):
+        x = randn((n, 256), torch.float32)
+        ok = all(torch.equal(st.strided_gather(x, stride=s),
+                             st.strided_gather_plain(x, stride=s))
+                 for s in range(1, 258))
+        record("check", kernel="strided", shape=[n, 256], strides="1..257",
+               exact=ok)
+        check(ok, f"strided disagrees with its plain version at n={n}")
+
+    def raises(fn) -> bool:
+        try:
+            fn()
+        except ValueError:
+            return True
+        return False
+
+    ones = torch.ones((100, 128), device=dev)
+    bad = pc.uniform_init(64, 4, dev)
+    bad[3] = 1000
+    errors = {
+        "memcpy rows % block_rows": raises(
+            lambda: mc.memcpy(ones, block_rows=64)),
+        "dbuf_copy rows % block_rows": raises(
+            lambda: dbuf.dbuf_copy(ones, block_rows=64)),
+        "dbuf_copy num_buffers 0": raises(
+            lambda: dbuf.dbuf_copy(x1g, num_buffers=0)),
+        "dbuf_copy num_buffers above shared memory": raises(
+            lambda: dbuf.dbuf_copy(x1g, num_buffers=64)),
+        "strided above one CTA's shared memory": raises(
+            lambda: st.strided_gather(torch.ones((1024, 1024), device=dev),
+                                      stride=3)),
+        "pchase index outside the array": raises(
+            lambda: pc.pchase_trace(bad, iterations=4)),
+    }
+    record("check", value_errors_on_cuda=errors)
+    check(all(errors.values()), f"a ValueError was not raised: {errors}")
+
+    # -- times: kernel, plain, library and bound ms ------------------------------
+    times = {}
+    clock_hz = big_cycles.elapsed_cycles / big_cycles.elapsed_ns * 1e9
+    times["pchase"] = dict(
+        ms=time_ms(torch, lambda: pc.pchase_trace(big, iterations=chase_k),
+                   3, warmup=1),
+        plain_ms=time_ms(torch, lambda: pc.pchase_trace_plain(
+            big, iterations=chase_k), 2, warmup=1),
+        library_ms=None,
+        bound_ms=chase_k * 8 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        latency_bound_ms=big_cycles.cycles.sum().item() / clock_hz * 1e3,
+        cycles_per_access=spread(torch, big_cycles.cycles),
+        sm_clock_mhz=clock_hz / 1e6,
+        shape=f"int32 single-cycle permutation, 64 MB, {chase_k} accesses")
+    del big, big_plain
+    out = torch.empty_like(x1g)
+    copy_bound = 2 * GIB / HBM_BYTES_PER_S * 1e3
+    times["memcpy"] = dict(
+        ms=time_ms(torch, lambda: mc.memcpy(x1g), 10),
+        plain_ms=time_ms(torch, lambda: mc.memcpy_plain(x1g), 10),
+        library_ms=time_ms(torch, lambda: out.copy_(x1g), 10),
+        bound_ms=copy_bound, bound_by="bytes",
+        shape="float32 (262144, 1024), 1 GiB, block_rows 256")
+    times["dbuf_copy"] = dict(
+        ms=time_ms(torch, lambda: dbuf.dbuf_copy(x1g), 10),
+        plain_ms=time_ms(torch, lambda: dbuf.dbuf_copy_plain(x1g), 10),
+        library_ms=time_ms(torch, lambda: out.copy_(x1g), 10),
+        bound_ms=copy_bound, bound_by="bytes",
+        shape="float32 (262144, 1024), 1 GiB, block_rows 256, num_buffers 2")
+    xs = randn((128, 256), torch.float32)
+    idx = st.gather_index(128, 1, dev)
+    times["strided"] = dict(
+        ms=time_ms(torch, lambda: st.strided_gather(xs, stride=1), 200),
+        plain_ms=time_ms(torch, lambda: st.strided_gather_plain(
+            xs, stride=1), 200),
+        library_ms=time_ms(torch, lambda: torch.index_select(xs, 0, idx),
+                           200),
+        bound_ms=2 * xs.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", shape="float32 (128, 256), 128 KB, stride 1")
+    for name, t in times.items():
+        record("times", kernel=name, card=card, **t)
+    del out
+
+    # -- measure: the path end to end, counted -----------------------------------
+    mods = {"pchase": pc, "memcpy": mc, "dbuf_copy": dbuf, "strided": st}
+    for m in mods.values():
+        m.launches = 0
+    backend = pc.kernel_trace_backend(device=dev)
+    levels = {}
+    # (footprint, stride, passes, accesses read): the later passes of L1
+    # and L2 are warm; device memory is one cold pass, whose 65536 lines
+    # (8 MB) would sit in L2 on a second pass
+    for level, nbytes, stride, passes in (("L1", 16 << 10, 32, 16),
+                                          ("L2", 8 << 20, 128, 2),
+                                          ("device memory", 256 << 20, 4096,
+                                           1)):
+        n, s = nbytes // 4, stride // 4
+        per_pass = n // s
+        ct = pc.pchase_trace_cycles(pc.uniform_init(n, s, dev), (-s) % n,
+                                    iterations=passes * per_pass)
+        want = (torch.arange(per_pass, device=dev) * s) % n
+        check(torch.equal(ct.indices[:per_pass].long(), want),
+              f"{level} chase is not the uniform chase")
+        read = ct.cycles[per_pass * (passes // 2):]
+        tr = chase.fine_grained(backend, nbytes, stride)
+        levels[level] = dict(footprint_bytes=nbytes, stride_bytes=stride,
+                             accesses=passes * per_pass,
+                             cycles=spread(torch, read),
+                             sm_clock_mhz=ct.elapsed_cycles / ct.elapsed_ns
+                             * 1e3,
+                             differential_ns=tr.meta["per_access_ns"])
+        record("measure", step="pchase_cycles", level=level, card=card,
+               **levels[level])
+    med = [levels[lv]["cycles"]["median"]
+           for lv in ("L1", "L2", "device memory")]
+    check(med[0] < med[1] < med[2],
+          f"P-chase medians not ordered L1 < L2 < device memory: {med}")
+
+    assumed_l1 = 256 << 10       # the SM's L1 + shared memory, an upper bound
+    sizes = list(range(32 << 10, (320 << 10) + 1, 16 << 10))
+    wong = chase.wong2010(backend, sizes, 128, passes=32)
+    wong_params = classic.interpret_wong(wong, assumed_l1)
+    record("measure", step="wong2010", stride_bytes=128, passes=32,
+           tavg_ns=finite_curve("wong2010", wong),
+           classic=dataclasses.asdict(wong_params),
+           assumed_cache_bytes=assumed_l1, card=card)
+    strides = [4 << i for i in range(15)]
+    saav = chase.saavedra1992(backend, 1 << 20, strides, passes=16)
+    saav_params = classic.interpret_saavedra(saav, 1 << 20, assumed_l1)
+    record("measure", step="saavedra1992", array_bytes=1 << 20, passes=16,
+           tavg_ns=finite_curve("saavedra1992", saav),
+           classic=dataclasses.asdict(saav_params),
+           assumed_cache_bytes=assumed_l1, card=card)
+
+    gbps = {"1 GiB (262144, 1024) f32": ops.memcpy_throughput_gbps(
+                (GIB // 4096, 1024), device=dev),
+            "default (4096, 512) f32, 8 MB": ops.memcpy_throughput_gbps(
+                device=dev)}
+    record("measure", step="memcpy_throughput_gbps", gbps=gbps, card=card)
+    check(all(math.isfinite(v) and v > 0 for v in gbps.values()),
+          f"memcpy throughput not positive: {gbps}")
+
+    depth = {}
+    for nb in (1, 2, 3, 4, 6, 8):
+        ms = time_ms(torch, lambda: dbuf.dbuf_copy(x1g, num_buffers=nb), 5,
+                     warmup=1)
+        depth[nb] = {"ms": ms, "gbps": 2 * GIB / ms / 1e6}
+    record("measure", step="dbuf_copy_depth", shape=list(x1g.shape),
+           tile_bytes=dbuf._library().repro_dbuf_tile_bytes(), depth=depth,
+           card=card)
+
+    stride_curve = {}
+    for s in (1, 2, 3, 4, 8, 16, 32, 33, 64, 128):
+        stride_curve[s] = {
+            "ms": time_ms(torch, lambda: ops.strided_gather(xs, s), 100),
+            "gcd_with_32": math.gcd(s, 32)}
+    record("measure", step="strided_stride_curve", shape=[128, 256],
+           curve=stride_curve, card=card)
+
+    counts = {name: m.launches for name, m in mods.items()}
+    record("measure", step="launches", launches=counts)
+    check(all(counts.values()), f"a kernel of the path never ran: {counts}")
+
+    sources = {"pchase": "pchase.py:27", "memcpy": "memcpy.py:26",
+               "dbuf_copy": "dbuf_copy.py:23", "strided": "strided.py:24"}
+    return [{"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+             "replaces": f"src/repro/kernels/{sources[name]}",
+             "launches": counts[name], "max_abs_err": 0.0, **times[name],
+             "card": card} for name in mods]
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py runs from the root of a checkout of the repo: "
@@ -164,7 +446,10 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import configs, resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.kernels import dbuf_copy as dbuf
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import pchase as pc
+    from repro_torch.kernels import strided as st
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
@@ -179,14 +464,21 @@ def main() -> int:
 
     # -- build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build(["flash_attention"])
+    built = _build.build(KERNELS)
     smem = fa._library().repro_flash_attention_smem_bytes
+    pclib, dblib = pc._library(), dbuf._library()
     record("build", seconds=time.perf_counter() - t0,
            libraries={n: {"seconds": b.seconds,
                           "path": str(b.path.relative_to(ROOT)),
                           "ptxas": ptxas_summary(b.log)}
                       for n, b in built.items()},
-           flash_dynamic_smem_bytes={d: smem(d) for d in (16, 32, 64, 128)})
+           flash_dynamic_smem_bytes={d: smem(d) for d in (16, 32, 64, 128)},
+           pchase_carveout_percent=pclib.repro_pchase_carveout(),
+           pchase_static_smem_bytes=pclib.repro_pchase_smem_bytes(),
+           pchase_chunk=pclib.repro_pchase_chunk(),
+           dbuf_tile_bytes=dblib.repro_dbuf_tile_bytes(),
+           dbuf_max_buffers=dblib.repro_dbuf_max_buffers(),
+           strided_max_smem_bytes=st._library().repro_strided_max_smem())
 
     # -- check: kernel against its plain version --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -299,28 +591,49 @@ def main() -> int:
           f"dense engine launched flash {launched} times, not "
           f"{cfg.num_layers} x {dense_args.requests}")
 
-    # flash against the plain "ref" path on the same weights (not counted)
+    # flash against the plain "ref" path on the same weights (not counted):
+    # in bf16, printed; in float32 at full depth, gated
     ref_cfg = dataclasses.replace(cfg, attention_impl="ref")
     prompt = torch.randint(0, cfg.vocab_size, (1, 256), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(2))
-    flash_logits, _ = T.prefill(params, cfg, {"tokens": prompt})
-    ref_logits, _ = T.prefill(params, ref_cfg, {"tokens": prompt})
-    diff = flash_logits - ref_logits
-    rel_rms = (diff.norm() / ref_logits.norm()).item()
+
+    def logits_pair(p, flash_cfg):
+        flash, _ = T.prefill(p, flash_cfg, {"tokens": prompt})
+        ref, _ = T.prefill(p, dataclasses.replace(flash_cfg,
+                                                  attention_impl="ref"),
+                           {"tokens": prompt})
+        diff = flash - ref
+        return flash, {"rel_rms": (diff.norm() / ref.norm()).item(),
+                       "max_abs": diff.abs().max().item(),
+                       "max_abs_ref": ref.abs().max().item()}
+
+    flash_logits, bf16 = logits_pair(params, cfg)
     fa.launches = 0
     ref_loop = serve._batch_loop(ref_cfg, params, loop_args)
     agree = (ref_loop["tokens"] == toks).float().mean().item()
-    record("serving", step="flash_vs_ref", logits_rel_rms=rel_rms,
-           logits_max_abs=diff.abs().max().item(),
-           logits_max_abs_ref=ref_logits.abs().max().item(),
-           tol_rel_rms=LOGITS_REL_RMS_TOL,
-           greedy_token_agreement=agree, ref_loop_flash_launches=fa.launches)
-    check(bool(torch.isfinite(flash_logits).all())
-          and tuple(flash_logits.shape) == (1, 1, cfg.vocab_size),
-          "flash prefill logits not finite or of the wrong shape")
-    check(rel_rms <= LOGITS_REL_RMS_TOL,
-          f"flash prefill logits differ from ref by {rel_rms} (rel RMS)")
-    check(fa.launches == 0, "the ref path launched the flash kernel")
+    ref_loop_launches = fa.launches
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = T.TransformerLM(
+        cfg32, embed=params.embed.float(), head=params.head.float(),
+        final_norm=params.final_norm.float(),
+        blocks=[{n: t.float() for n, t in b.items()} for b in params.blocks])
+    f32_memory = torch.cuda.memory_allocated()
+    flash32, f32 = logits_pair(params32, cfg32)
+    del params32
+    torch.cuda.empty_cache()
+    record("serving", step="flash_vs_ref", bf16_logits=bf16,
+           greedy_token_agreement_bf16=agree, f32_logits=f32,
+           tol_rel_rms_f32=LOGITS_REL_RMS_TOL,
+           memory_allocated_with_f32_copy=f32_memory,
+           ref_loop_flash_launches=ref_loop_launches)
+    for logits in (flash_logits, flash32):
+        check(bool(torch.isfinite(logits).all())
+              and tuple(logits.shape) == (1, 1, cfg.vocab_size),
+              "flash prefill logits not finite or of the wrong shape")
+    check(f32["rel_rms"] <= LOGITS_REL_RMS_TOL,
+          f"f32 flash prefill logits differ from ref by {f32['rel_rms']} "
+          "(rel RMS)")
+    check(ref_loop_launches == 0, "the ref path launched the flash kernel")
 
     # where the time goes: a warm prefill, and 8 warm decode steps
     prompts = torch.randint(0, cfg.vocab_size, (4, 256), device=dev,
@@ -344,8 +657,11 @@ def main() -> int:
     record("serving", step="profile_decode", batch=4, steps=8,
            **device_busy(torch, decode, trace_dir / "trace_decode.json"))
 
+    del params, prof_cache, loop, run, eng, finished
+    torch.cuda.empty_cache()
+
     t = times[256]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
@@ -354,7 +670,9 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": "bf16 causal q (32, 256, 128), k/v (8, 256, 128)",
-        "card": card}]}), flush=True)
+        "card": card}]
+    kernels += measurement(torch, dev, card)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

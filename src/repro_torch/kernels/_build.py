@@ -104,5 +104,14 @@ def library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name].path))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error (``cudaGetLastError()``)."""
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.repro_cuda_error_string(err).decode())

@@ -38,6 +38,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "c_api.cuh"
+
 namespace {
 
 constexpr int BQ = 64;                 // q rows per CTA
@@ -270,10 +272,6 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void*
 int repro_flash_attention_smem_bytes(int d) {
   const int dp = d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 0;
   return dp ? smem_floats(dp) * (int)sizeof(float) : 0;
-}
-
-const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

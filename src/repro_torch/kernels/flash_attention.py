@@ -82,8 +82,6 @@ def _library() -> ctypes.CDLL:
         lib.repro_flash_attention_fwd.restype = ctypes.c_int
         lib.repro_flash_attention_smem_bytes.argtypes = [ctypes.c_int]
         lib.repro_flash_attention_smem_bytes.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
@@ -134,8 +132,6 @@ def flash_attention(q, k, v, *, num_q_heads: int, num_kv_heads: int,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh,
             num_q_heads, num_kv_heads, sq, sk, d, int(causal), scale,
             _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError("flash_attention launch failed: "
-                           + lib.repro_cuda_error_string(err).decode())
+    _build.check(lib, err, "flash_attention")
     launches += 1
     return o

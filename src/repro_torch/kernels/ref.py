@@ -1,9 +1,31 @@
-"""Plain PyTorch oracles for the port's kernels."""
+"""Plain oracles for the port's kernels: twins of ``repro/kernels/ref.py``
+(numpy for the chase, PyTorch for the rest)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def pchase_ref(array: np.ndarray, iterations: int, start: int = 0) -> np.ndarray:
+    """Serial pointer chase; the exact trace the kernel must reproduce."""
+    out = np.empty(iterations, dtype=np.int32)
+    j = int(start)
+    a = np.asarray(array)
+    for t in range(iterations):
+        j = int(a[j])
+        out[t] = j
+    return out
+
+
+def memcpy_ref(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def strided_ref(x: torch.Tensor, stride: int) -> torch.Tensor:
+    n = x.shape[0]
+    idx = (np.arange(n) * stride) % n
+    return x[torch.from_numpy(idx).to(x.device)]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -38,18 +38,23 @@ def test_no_jax_or_repro_imports(path):
 
 def test_guard_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
-    assert {"flash_attention.py", "engine.py", "serve.py",
-            "chip_smoke.py"} <= names
+    assert {"flash_attention.py", "engine.py", "serve.py", "pchase.py",
+            "memcpy.py", "dbuf_copy.py", "strided.py", "classic.py",
+            "trace.py", "chip_smoke.py"} <= names
 
 
 def test_kernel_entry_points_import_lazily():
     code = (
         "import sys, json\n"
         "import repro_torch.kernels.ops, repro_torch.launch.serve\n"
-        "from repro_torch.kernels import _build, flash_attention\n"
+        "import repro_torch.core.pchase, repro_torch.core.classic\n"
+        "from repro_torch.kernels import _build, flash_attention, pchase, "
+        "memcpy, dbuf_copy, strided\n"
+        "mods = (flash_attention, pchase, memcpy, dbuf_copy, strided)\n"
         "print(json.dumps({'mods': [m for m in ('triton', "
         "'torch.utils.cpp_extension', 'jax', 'repro') if m in sys.modules],"
-        " 'libs': len(_build._libs), 'lib': flash_attention._lib is None}))\n")
+        " 'libs': len(_build._libs), 'lib': all(m._lib is None "
+        "for m in mods)}))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
