@@ -10,7 +10,7 @@ prints one JSON record on a line of its own; any failure raises and exits
 non-zero. Phases:
 
   device   the card's name and power limit (nvidia-smi) and torch's name
-  build    all five kernels, one nvcc each, started together; ptxas
+  build    all six kernels, one nvcc each, started together; ptxas
            registers, shared memory and spills
   check    the flash kernel against its plain PyTorch version on the card,
            at granite-8b's head shapes, in bfloat16 and float32
@@ -22,6 +22,19 @@ non-zero. Phases:
            float32; then a warm prefill and a warm run of decode steps
            under torch.profiler, for the device's busy time beside the wall
            time
+  paged    the same weights and workload through the launcher's paged
+           engine (pages sized by the cost model: 128 tokens), checked
+           after every tick, with no leaked page, at most a page of slack
+           and no flash launch (paged attention is masked, so it takes the
+           plain branch); a warm window of its decode ticks under
+           torch.profiler; the same workload on a pool sized from its own
+           lengths so that it must preempt; and in float32 at 4 layers, the
+           first decode logits of the paged engine against the dense
+           engine's, gated
+  check    the rmsnorm kernel against its plain version at granite-8b's
+           and mistral-large's widths and a width that takes the scalar
+           tail, float32 and bfloat16, and its ValueError on CUDA tensors
+  times    rmsnorm beside plain, torch.nn.functional.rms_norm and bound ms
   check    the measurement kernels (pchase, memcpy, dbuf_copy, strided)
            against their plain versions on the card, exactly, at the
            paper's sizes (1 GiB copies, a 64 MB chase), and each
@@ -62,7 +75,13 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:95
 #: GQA row off) moves the logits by O(1). The bf16 value is printed, not
 #: gated: there the two paths round at different places.
 LOGITS_REL_RMS_TOL = 1e-3
-KERNELS = ["flash_attention", "pchase", "memcpy", "dbuf_copy", "strided"]
+#: paged vs dense first-decode logits, float32, 4 layers: the two engines
+#: run the same arithmetic but for the attention of the prompt (flash in
+#: the dense prefill, the plain masked branch in the paged chunks), whose
+#: float32 difference is about 1e-6 of a logit
+PAGED_REL_RMS_TOL = 1e-4
+KERNELS = ["flash_attention", "pchase", "memcpy", "dbuf_copy", "strided",
+           "rmsnorm"]
 GIB = 1 << 30
 
 
@@ -187,6 +206,237 @@ def finite_curve(name: str, curve: dict) -> dict:
     check(all(math.isfinite(v) and v >= 0 for v in curve.values()),
           f"{name} curve has a negative or non-finite value: {curve}")
     return {str(k): v for k, v in curve.items()}
+
+
+def common_prefix(a: list, b: list) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def rmsnorm_phase(torch, dev, card: str, launches: int) -> dict:
+    """Check the rmsnorm kernel against its plain version on the card, then
+    time it. ``launches`` is its count from the serving path's run.
+    Returns its kernel record."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(rows, d, dtype):
+        x = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+        sc = (torch.randn((d,), generator=gen, device=dev) * 0.1 + 1
+              ).to(dtype)
+        return x, sc
+
+    errs = {}
+    # granite-8b's prefill batch (4 x 256) and decode batch (8) at d 4096,
+    # mistral-large-123b's d 12288, and a d that is no multiple of 8
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for rows, d in ((1024, 4096), (8, 4096), (64, 12288), (256, 4097)):
+            x, sc = inputs(rows, d, dtype)
+            got = rn.rmsnorm(x, sc)
+            torch.cuda.synchronize()
+            want = ref.rmsnorm_ref(x, sc)
+            err = (got.float() - want.float()).abs().max().item()
+            peak = want.float().abs().max().item()
+            if dname == "float32":
+                ok, tol = err <= 1e-6 * peak, {"max_abs_over_max_ref": 1e-6}
+            else:
+                ulps = int(ref.bf16_ulp_distance(got, want).max())
+                ok, tol = ulps <= 1, {"bf16_ulps": 1, "max_ulps": ulps}
+            errs[(dname, rows, d)] = err
+            record("check", kernel="rmsnorm", dtype=dname, shape=[rows, d],
+                   vector_path=rn.vector_path(x, got), max_abs_err=err,
+                   max_abs_ref=peak, tol=tol, ok=ok)
+            check(ok, f"rmsnorm disagrees with its plain version ({dname}, "
+                      f"{rows}x{d}): max abs {err}")
+    x, sc = inputs(100, 4096, torch.bfloat16)
+    try:
+        rn.rmsnorm(x, sc, block_rows=64)
+        raised = False
+    except ValueError:
+        raised = True
+    record("check", kernel="rmsnorm", divisibility_value_error=raised)
+    check(raised, "rmsnorm rows 100 with block_rows 64 did not raise")
+
+    times = {}
+    for rows in (1024, 65536):
+        x, sc = inputs(rows, 4096, torch.bfloat16)
+        iters = 200 if rows == 1024 else 20
+        times[rows] = dict(
+            ms=time_ms(torch, lambda: rn.rmsnorm(x, sc), iters),
+            plain_ms=time_ms(torch, lambda: ref.rmsnorm_ref(x, sc), iters),
+            library_ms=time_ms(torch, lambda: torch.nn.functional.rms_norm(
+                x, (4096,), weight=sc, eps=1e-6), iters),
+            bound_ms=(2 * rows * 4096 + 4096) * 2 / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes")
+        record("times", kernel="rmsnorm", dtype="bfloat16",
+               shape=[rows, 4096], card=card, **times[rows])
+    t = times[1024]
+    return {"name": "rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:16",
+            "launches": launches,
+            "max_abs_err": errs[("bfloat16", 1024, 4096)],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": "bf16 x (1024, 4096), scale (4096,)",
+            "times_65536x4096": times[65536], "card": card}
+
+
+def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
+                  ) -> None:
+    """Full-width granite-8b through the launcher's paged engine, on the
+    dense phase's weights and workload; then a tight pool; then paged vs
+    dense first-decode logits in float32 at 4 layers."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.core.costmodel import kv_bytes_per_token
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import paging
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
+
+    kv_tok = kv_bytes_per_token(cfg)
+    want_len = paging.choose_page_len(cfg, expected_tokens=768)
+
+    def checked(eng):
+        """Check the books after every tick of ``eng``."""
+        step = eng.step
+
+        def step_and_check():
+            live = step()
+            eng.check_invariants()
+            return live
+        eng.step = step_and_check
+        return eng
+
+    def run(num_pages):
+        args = argparse.Namespace(requests=8, slots=4, max_len=768, seed=0,
+                                  engine="paged", page_len=None,
+                                  num_pages=num_pages, prefill_chunk=None)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            eng = checked(serve._paged_engine(cfg, params, args))
+            fa.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            res = serve._engine_run(cfg, params, args, engine=eng)
+        print(out.getvalue(), end="", flush=True)
+        printed = int(re.search(r"page_len=(\d+)", out.getvalue()).group(1))
+        s = eng.stats()
+        got = {r.uid: r.generated for r in res["finished"]}
+        toks = sum(len(g) for g in got.values())
+        rec = dict(requests=len(got), tokens=toks, ticks=s["steps"],
+                   wall_ms=res["wall_s"] * 1e3,
+                   tokens_per_s=toks / res["wall_s"],
+                   page_len=eng.page_len, printed_page_len=printed,
+                   num_pages=eng.alloc.num_pages, peak_pages=s["peak_pages"],
+                   peak_pool_bytes=s["peak_pages"] * eng.page_len * kv_tok,
+                   pool_bytes=eng.alloc.num_pages * eng.page_len * kv_tok,
+                   kv_bytes_per_token=kv_tok,
+                   preemptions=s["preemptions"],
+                   max_slack_tokens=s["max_slack_tokens"],
+                   pages_leaked=eng.alloc.allocated_pages,
+                   flash_launches=fa.launches,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   # bf16, reported and not gated: the dense prefill runs
+                   # flash, the paged chunks the plain masked attention,
+                   # and the two round at different places
+                   uids_equal_to_dense_bf16=sum(
+                       got.get(u) == g for u, g in dense_tokens.items()),
+                   prefix_equal_to_dense_bf16={
+                       uid: [common_prefix(got.get(uid, []), g), len(g)]
+                       for uid, g in sorted(dense_tokens.items())})
+        check(len(got) == 8 and all(
+            len(r.generated) == r.max_new_tokens for r in res["finished"]),
+            "the paged engine did not answer every request in full")
+        check(all(0 <= t < cfg.vocab_size for g in got.values() for t in g),
+              "paged engine tokens out of range")
+        check(rec["pages_leaked"] == 0, f"{rec['pages_leaked']} pages leaked")
+        check(rec["max_slack_tokens"] <= eng.page_len,
+              f"slack {rec['max_slack_tokens']} above a page")
+        check(printed == eng.page_len == want_len,
+              f"page_len printed {printed}, engine {eng.page_len}, "
+              f"choose_page_len {want_len}")
+        check(fa.launches == 0,
+              f"the paged run launched flash {fa.launches} times")
+        return eng, rec
+
+    eng, rec = run(None)
+    record("paged", step="serve", max_len=768, slots=4, **rec)
+
+    # where the time goes: a warm window of 8 decode ticks, 4 slots busy
+    prof = PagedServeEngine(cfg, params, max_slots=4, max_len=768)
+    rng = np.random.default_rng(5)
+    for uid in range(4):
+        prof.submit(serve.Request(uid, rng.integers(
+            cfg.vocab_size, size=200).astype(np.int32), 64))
+    while len(prof.active) < 4:
+        prof.step()
+
+    def decode_window():
+        for _ in range(8):
+            prof.step()
+
+    record("paged", step="profile_decode", batch=4, steps=8,
+           **device_busy(torch, decode_window,
+                         trace_dir / "trace_paged_decode.json"))
+    del prof
+
+    # a pool three requests' worst case deep: the workload must preempt
+    worst = max(eng._worst_case_pages(r) for r in eng.finished)
+    del eng
+    tight, rec = run(3 * worst + paging.SCRATCH_PAGES)
+    record("paged", step="tight_pool", worst_case_pages=worst, **rec)
+    check(rec["preemptions"] > 0, "the tight pool did not preempt")
+    del tight
+
+    # paged vs dense first-decode logits, float32, 4 layers
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                num_layers=4)
+    params32 = T.TransformerLM(
+        cfg32, embed=params.embed.float(), head=params.head.float(),
+        final_norm=params.final_norm.float(),
+        blocks=[{n: t.float() for n, t in b.items()}
+                for b in params.blocks[:4]])
+
+    def first_decode_logits(eng) -> dict:
+        seen: dict[int, "torch.Tensor"] = {}
+
+        def sampler(logits):
+            if logits.dim() == 2:           # a decode step: (slots, vocab)
+                for slot, req in eng.active.items():
+                    if len(req.generated) == 1 and req.uid not in seen:
+                        seen[req.uid] = logits[slot].clone()
+            return torch.argmax(logits, -1)
+        eng.sampler = sampler
+        for r in serve._workload(cfg32, argparse.Namespace(
+                requests=4, max_len=768, seed=0)):
+            eng.submit(r)
+        eng.run_to_completion()
+        return seen
+
+    dense = first_decode_logits(ServeEngine(cfg32, params32, max_slots=4,
+                                            max_len=768))
+    paged = first_decode_logits(PagedServeEngine(cfg32, params32,
+                                                 max_slots=4, max_len=768))
+    check(sorted(dense) == sorted(paged) == [0, 1, 2, 3],
+          "the engines did not decode the same requests")
+    a = torch.stack([paged[u] for u in range(4)])
+    b = torch.stack([dense[u] for u in range(4)])
+    rel = ((a - b).norm() / b.norm()).item()
+    record("paged", step="paged_vs_dense_f32", layers=4, requests=4,
+           rel_rms=rel, max_abs=(a - b).abs().max().item(),
+           max_abs_dense=b.abs().max().item(), tol_rel_rms=PAGED_REL_RMS_TOL)
+    check(bool(torch.isfinite(a).all()), "paged f32 logits not finite")
+    check(rel <= PAGED_REL_RMS_TOL,
+          f"paged vs dense f32 logits differ by {rel} (rel RMS)")
 
 
 def measurement(torch, dev, card: str) -> list[dict]:
@@ -449,6 +699,7 @@ def main() -> int:
     from repro_torch.kernels import dbuf_copy as dbuf
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import pchase as pc
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import strided as st
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
@@ -552,6 +803,7 @@ def main() -> int:
            memory_allocated=torch.cuda.memory_allocated())
 
     main_launches = 0
+    rn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     loop_args = argparse.Namespace(batch=4, prompt_len=256, gen=16)
     fa.launches = 0
@@ -576,6 +828,7 @@ def main() -> int:
     launched = fa.launches
     main_launches += launched
     eng, finished = run["engine"], run["finished"]
+    dense_tokens = {r.uid: r.generated for r in finished}
     stats = eng.stats()
     record("serving", step="dense", requests=len(finished),
            tokens=sum(len(r.generated) for r in finished),
@@ -657,7 +910,11 @@ def main() -> int:
     record("serving", step="profile_decode", batch=4, steps=8,
            **device_busy(torch, decode, trace_dir / "trace_decode.json"))
 
-    del params, prof_cache, loop, run, eng, finished
+    del prof_cache, loop, run, eng, finished
+    torch.cuda.empty_cache()
+    paged_serving(torch, cfg, params, dense_tokens, trace_dir)
+    serving_rmsnorm_launches = rn.launches
+    del params
     torch.cuda.empty_cache()
 
     t = times[256]
@@ -671,6 +928,7 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": "bf16 causal q (32, 256, 128), k/v (8, 256, 128)",
         "card": card}]
+    kernels.append(rmsnorm_phase(torch, dev, card, serving_rmsnorm_launches))
     kernels += measurement(torch, dev, card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -49,3 +49,22 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(mask[None], s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, vf).to(q.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *,
+                eps: float = 1e-6) -> torch.Tensor:
+    """The Pallas rmsnorm kernel's order: statistics, the product with the
+    float32 scale, then one cast to ``x.dtype``. (The model's
+    ``layers.rms_norm`` casts first and multiplies by the scale after.)"""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def bf16_ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How many bfloat16 steps apart ``a`` and ``b`` are, element by
+    element (both bfloat16; -0 and +0 are one value)."""
+    def order(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (order(a) - order(b)).abs()

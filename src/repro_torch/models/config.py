@@ -4,7 +4,8 @@ A copy of ``repro/models/config.py``'s ``ModelConfig`` with every field,
 so that config files copy over verbatim; only the dtype table maps to
 torch. The port assembles the dense family so far; the other families'
 fields are kept for the configs that are still to be ported (ROADMAP.md).
-The JAX package's parameter and FLOP accounting methods are not copied.
+Of the JAX package's accounting methods, the parameter counts are copied
+(the cost model prices with them), for the families the port assembles.
 """
 
 from __future__ import annotations
@@ -140,3 +141,15 @@ class ModelConfig:
             else:
                 kinds.append("dense")
         return kinds
+
+    # -- parameter accounting (the cost model's) ---------------------------
+
+    def param_count(self) -> int:
+        """Exact parameter count of the assembled model."""
+        from repro_torch.models.transformer import count_params  # lazy: cycle
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (the dense family: all of them)."""
+        from repro_torch.models.transformer import count_params
+        return count_params(self, active_only=True)

@@ -1,8 +1,9 @@
 """Building blocks of the dense GQA transformer, in PyTorch.
 
 Twin of the dense subset of ``repro/models/layers.py``: ``rms_norm``,
-``rotary``, GQA attention with its three cache branches, and the SwiGLU
-FFN. Parameters are plain mappings of tensors, as the JAX package's are
+``rotary``, GQA attention with its four cache branches (none, paged,
+per-slot vector, scalar ring), the paged scatter and gather, and the
+SwiGLU FFN. Parameters are plain mappings of tensors, as the JAX package's are
 dicts. Weights keep JAX's ``(in, out)`` layout and multiply as
 ``x @ W``, so a converted JAX pytree needs no transpose.
 
@@ -74,6 +75,43 @@ def _decode_valid(t: int, cache_index, device) -> torch.Tensor:
     return ar <= cache_index
 
 
+# -- paged KV cache (repro_torch.serve.paging) --------------------------------
+
+
+def _paged_scatter(pages: torch.Tensor, page_table: torch.Tensor,
+                   positions: torch.Tensor, vals: torch.Tensor
+                   ) -> torch.Tensor:
+    """Write per-token values into the shared page pool, IN PLACE.
+
+    pages: (num_pages, page_len, ...); page_table: (B, P) physical page of
+    each logical page; positions: (B, S) absolute token positions; vals:
+    (B, S, ...). Inactive slots point at the scratch page (0), so their
+    garbage writes can never land in a live request's pages; several of
+    them may write the same scratch row in one step, and which one wins
+    does not matter (nothing live reads page 0). The serving engine keeps
+    ``positions // page_len`` inside the table (tests/test_torch_paged.py
+    checks every step), where a CUDA index out of range would be a device
+    assert and the JAX gather would clamp."""
+    pl = pages.shape[1]
+    phys = torch.gather(page_table, 1, positions // pl)
+    pages.index_put_((phys, positions % pl), vals.to(pages.dtype),
+                     accumulate=False)
+    return pages
+
+
+def _paged_gather(pages: torch.Tensor, page_table: torch.Tensor
+                  ) -> torch.Tensor:
+    """Gather each slot's pages back into a (B, P*page_len, ...) view."""
+    b, p = page_table.shape
+    return pages[page_table].reshape(b, p * pages.shape[1], *pages.shape[2:])
+
+
+def _paged_valid(t: int, positions: torch.Tensor) -> torch.Tensor:
+    """(B, S, t) causal mask against absolute per-token positions."""
+    return (torch.arange(t, device=positions.device)[None, None, :]
+            <= positions[:, :, None])
+
+
 def init_attention(cfg: ModelConfig, generator: torch.Generator,
                    device) -> dict[str, torch.Tensor]:
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -90,7 +128,9 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
 def _sdpa(q, k, v, cfg: ModelConfig, *, causal: bool,
           kv_len_mask: torch.Tensor | None = None) -> torch.Tensor:
     """q: (B,S,H,D); k/v: (B,T,Hkv,D).  kv_len_mask: (B,T) valid-slot mask
-    (decode against a preallocated cache)."""
+    (decode against a preallocated cache) or (B,S,T) per-query positional
+    mask (paged chunked prefill). A mask always takes the plain branch,
+    never flash."""
     b, s, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     if cfg.attention_impl == "flash" and kv_len_mask is None and s == t:
@@ -110,7 +150,9 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, causal: bool,
         mask = torch.ones((s, t), dtype=torch.bool, device=q.device).tril()
         scores = torch.where(mask, scores, -1e30)
     if kv_len_mask is not None:
-        scores = torch.where(kv_len_mask[:, None, None, None, :], scores, -1e30)
+        m = (kv_len_mask[:, None, None, None, :] if kv_len_mask.ndim == 2
+             else kv_len_mask[:, None, None, :, :])
+        scores = torch.where(m, scores, -1e30)
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return o.reshape(b, s, h, v.shape[-1]).to(q.dtype)
@@ -119,10 +161,15 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, causal: bool,
 def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor,
                     cache: dict | None = None,
-                    cache_index: torch.Tensor | int | None = None
+                    cache_index: torch.Tensor | int | None = None,
+                    page_table: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, dict | None]:
-    """``cache=None`` is the full-sequence prefill; a ``{"k", "v"}`` cache
-    of (B, T, Hkv, D) is one decode step, written IN PLACE at
+    """``cache=None`` is the full-sequence prefill. With ``page_table``
+    (B, P), the ``{"k", "v"}`` cache is one layer's page pool of
+    (num_pages, page_len, Hkv, D): this step's K/V are scattered into it
+    IN PLACE at ``positions`` and each slot's pages gathered back, for
+    one-token decode (S=1) and chunked prefill alike. Otherwise a cache of
+    (B, T, Hkv, D) is one decode step, written IN PLACE at
     ``cache_index`` (a (B,) vector of per-slot positions, or one scalar
     position for the whole batch) and returned."""
     b, s, d = x.shape
@@ -138,6 +185,16 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         causal = cfg.causal and not cfg.is_encoder
         o = _sdpa(q, k, v, cfg, causal=causal)
         new_cache = {"k": k, "v": v}
+    elif page_table is not None:
+        # the scatter comes before the gather, as in the reference: a
+        # chunk's queries see the chunk's own keys
+        ck = _paged_scatter(cache["k"], page_table, positions, k)
+        cv = _paged_scatter(cache["v"], page_table, positions, v)
+        kg = _paged_gather(ck, page_table)
+        vg = _paged_gather(cv, page_table)
+        o = _sdpa(q, kg, vg, cfg, causal=False,
+                  kv_len_mask=_paged_valid(kg.shape[1], positions))
+        new_cache = {"k": ck, "v": cv}
     elif cache["k"].dtype == torch.int8:
         raise NotImplementedError(f"the int8 KV cache is {NOT_PORTED}")
     else:

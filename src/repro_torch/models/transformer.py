@@ -5,11 +5,13 @@ package stacks the layers as scanned ``units``; here
 :class:`TransformerLM` holds one ``ParameterDict`` per layer in a
 ``ModuleList`` and the entry points loop over it. Entry points:
 
-  prefill   — forward over the prompt + a KV cache padded to ``max_len``
-  decode    — one-token step against the cache (serve_step), in place
+  prefill     — forward over the prompt + a KV cache padded to ``max_len``
+  decode      — one-token step against the cache (serve_step), in place
+  paged_step  — decode or a prefill chunk against the paged pool, in place
 
 ``forward``, the training path, is not ported yet (ROADMAP.md, queue 1
 item 9). The cache is ``{"k", "v"}`` of (layers, batch, max_len, Hkv, D),
+the paged pool ``{"k", "v"}`` of (layers, num_pages, page_len, Hkv, D):
 the JAX package's ``units/b0`` leaves with the unit axis as the layer axis.
 """
 
@@ -65,6 +67,17 @@ class TransformerLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters :func:`init_params` makes, counted from the shapes (the
+    JAX package traces its init for this). A dense model touches every
+    parameter per token, so ``active_only`` changes nothing here."""
+    check_supported(cfg)
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    block = 2 * d + d * (hq + 2 * hkv) * hd + hq * hd * d + 3 * d * cfg.d_ff
+    return 2 * cfg.vocab_size * d + d + cfg.num_layers * block
+
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: str | torch.device | None = None) -> TransformerLM:
     """Random weights by the JAX package's laws: f32 normal times
@@ -94,9 +107,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(p, x, cfg: ModelConfig, *, positions, cache, cache_index):
+def _apply_block(p, x, cfg: ModelConfig, *, positions, cache, cache_index,
+                 page_table=None):
     x, new_cache = L.apply_attention(p, x, cfg, positions=positions,
-                                     cache=cache, cache_index=cache_index)
+                                     cache=cache, cache_index=cache_index,
+                                     page_table=page_table)
     return L.apply_dense_block(p, x, cfg), new_cache
 
 
@@ -127,6 +142,53 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev)}
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_len: int,
+                     max_slots: int,
+                     device: str | torch.device | None = None) -> dict:
+    """Paged twin of :func:`init_cache`: attention K/V live in a shared
+    pool of (layers, num_pages, page_len, Hkv, D), whose memory scales
+    with ``num_pages``, the pages in circulation, instead of
+    ``max_slots * max_len``. ``max_slots`` sizes the slot-resident (SSM)
+    leaves of the JAX package, which the dense family has none of. The
+    allocator and page tables stay on the host (``serve.paging``)."""
+    check_supported(cfg)
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(
+            "int8 KV cache is not paged yet; use the dense ServeEngine")
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, num_pages, page_len, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev)}
+
+
+def paged_step(params: TransformerLM, cfg: ModelConfig, cache: dict,
+               tokens: torch.Tensor, start: torch.Tensor,
+               page_tables: torch.Tensor, slot_ids: torch.Tensor,
+               seq_lens: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, dict]:
+    """One step against a paged cache: decode (S=1) or a prefill chunk.
+
+    tokens (B,S) at absolute positions ``start[b] + j``; page_tables (B,P)
+    maps each slot's logical pages to physical pages (scratch page 0 for
+    unallocated/inactive entries); slot_ids (B,) and seq_lens (B,) select
+    the rows and valid lengths of the slot-resident (SSM) leaves, which
+    the dense family has none of, so they are taken for the JAX
+    package's signature and not read. The pool is updated in place and
+    returned with logits for every chunk position, (B, S, vocab)."""
+    x = _embed_inputs(params, cfg, tokens)
+    b, s, _ = x.shape
+    start = start.to(device=x.device, dtype=torch.long)
+    page_tables = page_tables.to(device=x.device, dtype=torch.long)
+    positions = start[:, None] + torch.arange(s, device=x.device)[None, :]
+    for i, p in enumerate(params.blocks):
+        x, _ = _apply_block(p, x, cfg, positions=positions,
+                            cache={"k": cache["k"][i], "v": cache["v"][i]},
+                            cache_index=start, page_table=page_tables)
+    x = rms_final(params, cfg, x)
+    return head_logits(params, cfg, x), cache
 
 
 def prefill(params: TransformerLM, cfg: ModelConfig, batch: dict, *,

@@ -1,1 +1,1 @@
-"""The port's serving engines: the dense continuous-batching engine so far."""
+"""The port's serving engines (dense and paged) and the page allocator."""

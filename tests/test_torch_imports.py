@@ -39,8 +39,10 @@ def test_no_jax_or_repro_imports(path):
 def test_guard_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     assert {"flash_attention.py", "engine.py", "serve.py", "pchase.py",
-            "memcpy.py", "dbuf_copy.py", "strided.py", "classic.py",
-            "trace.py", "chip_smoke.py"} <= names
+            "memcpy.py", "dbuf_copy.py", "strided.py", "rmsnorm.py",
+            "classic.py", "trace.py", "cachesim.py", "devices.py",
+            "bankconflict.py", "littles_law.py", "costmodel.py",
+            "profile.py", "store.py", "paging.py", "chip_smoke.py"} <= names
 
 
 def test_kernel_entry_points_import_lazily():
@@ -48,9 +50,11 @@ def test_kernel_entry_points_import_lazily():
         "import sys, json\n"
         "import repro_torch.kernels.ops, repro_torch.launch.serve\n"
         "import repro_torch.core.pchase, repro_torch.core.classic\n"
+        "import repro_torch.serve.engine, repro_torch.profile\n"
         "from repro_torch.kernels import _build, flash_attention, pchase, "
-        "memcpy, dbuf_copy, strided\n"
-        "mods = (flash_attention, pchase, memcpy, dbuf_copy, strided)\n"
+        "memcpy, dbuf_copy, strided, rmsnorm\n"
+        "mods = (flash_attention, pchase, memcpy, dbuf_copy, strided, "
+        "rmsnorm)\n"
         "print(json.dumps({'mods': [m for m in ('triton', "
         "'torch.utils.cpp_extension', 'jax', 'repro') if m in sys.modules],"
         " 'libs': len(_build._libs), 'lib': all(m._lib is None "

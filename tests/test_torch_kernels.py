@@ -1,12 +1,15 @@
-"""The port's flash attention against the JAX Pallas kernel.
+"""The port's flash attention and rmsnorm against the JAX Pallas kernels.
 
 On the CPU the port's wrapper runs its plain version; the JAX side runs
 the Pallas kernel in interpret mode, as its own tests do. Inputs are made
-with numpy from a seed. The shape matrix is that of
+with numpy from a seed. The flash shape matrix is that of
 ``tests/test_kernels.py::TestFlashAttention`` with S <= 512; tolerances
-are the JAX package's own (2e-5 float32, 2e-2 bfloat16). The tests
-marked ``gpu`` hold the CUDA kernel to its plain version on the card and
-skip without one.
+are the JAX package's own (2e-5 float32, 2e-2 bfloat16). The rmsnorm
+matrix is that of ``tests/test_kernels_extra.py::TestRMSNormKernel``:
+float32 within its 1e-6, and bfloat16 within its 2e-2 of the model's
+``rms_norm`` and within one bfloat16 step of the Pallas output. The
+tests marked ``gpu`` hold the CUDA kernels to their plain versions on
+the card and skip without one.
 """
 
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rmsnorm as rn
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -146,3 +150,73 @@ def test_kernel_rejects_on_card():
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(1, 2), q, q, num_q_heads=2,
                            num_kv_heads=2)
+
+
+# -- rmsnorm -----------------------------------------------------------------
+
+RMS_SHAPES = [(256, 128, 64), (512, 256, 256), (128, 512, 128)]
+
+
+def _rms_inputs(rows, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((rows, d), np.float32),
+            (rng.standard_normal(d, np.float32) * 0.1 + 1).astype(np.float32))
+
+
+@pytest.mark.parametrize("rows,d,block", RMS_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_pallas(rows, d, block, dtype):
+    from repro.kernels.rmsnorm import rmsnorm as jrmsnorm
+    from repro.models.layers import rms_norm as jrms_norm
+    jdt, tdt, _ = DTYPES[dtype]
+    x, sc = _rms_inputs(rows, d)
+    jx, jsc = jnp.asarray(x, jdt), jnp.asarray(sc, jdt)
+    want = jrmsnorm(jx, jsc, block_rows=block)
+    before = rn.launches
+    got = rn.rmsnorm(torch.from_numpy(x).to(tdt), torch.from_numpy(sc).to(tdt),
+                     block_rows=block)
+    assert rn.launches == before
+    assert got.dtype == tdt and got.shape == (rows, d)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                                   rtol=1e-6)
+        return
+    model = np.asarray(jrms_norm(jx, jsc, 1e-6), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), model, atol=2e-2,
+                               rtol=2e-2)
+    pallas = torch.from_numpy(np.asarray(want, np.float32)).to(torch.bfloat16)
+    assert int(ref.bf16_ulp_distance(got, pallas).max()) <= 1
+
+
+def test_rmsnorm_bad_block_raises():
+    with pytest.raises(ValueError, match="block_rows"):
+        rn.rmsnorm(torch.ones((100, 64)), torch.ones(64), block_rows=64)
+    with pytest.raises(ValueError, match="scale"):
+        rn.rmsnorm(torch.ones((64, 64)), torch.ones(32))
+
+
+def test_bf16_ulp_distance():
+    a = torch.tensor([1.0, -1.0, 0.0, 3.0], dtype=torch.bfloat16)
+    b = torch.tensor([1.0078125, -1.0078125, -0.0, 3.0],
+                     dtype=torch.bfloat16)
+    assert ref.bf16_ulp_distance(a, b).tolist() == [1, 1, 0, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(8, 4096), (64, 12288), (32, 4100)])
+def test_rmsnorm_kernel_matches_plain_on_card(dtype, rows, d):
+    _card()
+    _, tdt, _ = DTYPES[dtype]
+    x, sc = (torch.from_numpy(a).to("cuda", tdt) for a in _rms_inputs(rows, d))
+    before = rn.launches
+    got = rn.rmsnorm(x, sc)
+    torch.cuda.synchronize()
+    assert rn.launches == before + 1
+    want = ref.rmsnorm_ref(x, sc)
+    if dtype == "float32":
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    else:
+        assert int(ref.bf16_ulp_distance(got, want).max()) <= 1
+    with pytest.raises(ValueError, match="block_rows"):
+        rn.rmsnorm(x[:rows - 1], sc, block_rows=rows // 2)

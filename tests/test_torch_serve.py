@@ -3,7 +3,8 @@
 Both engines serve the same seeded workload (the launchers' ``_workload``)
 with the same weights, carried across by ``params_from_jax``. Greedy
 tokens must be identical per uid, and the engines' books (``stats()``)
-equal, with ``attention_impl`` "ref" and "flash".
+equal, with ``attention_impl`` "ref" and "flash". The launcher's paged
+engine must print the reference's page-length rationale and tokens.
 """
 
 import argparse
@@ -22,7 +23,8 @@ from repro_torch import configs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_jax
-from repro_torch.serve.engine import Request, ServeEngine, kv_bytes_per_token
+from repro_torch.core.costmodel import kv_bytes_per_token
+from repro_torch.serve.engine import Request, ServeEngine
 
 ARGS = argparse.Namespace(seed=0, requests=4, max_len=48, slots=2,
                           engine="dense")
@@ -100,9 +102,9 @@ def test_launcher_runs_on_cpu_without_launches(engine, capsys):
         assert out["tokens"].shape == (4, 4) and "prefill:" in text
 
 
-@pytest.mark.parametrize("flag", [["--engine", "paged"], ["--engine", "fleet"],
-                                  ["--plan"], ["--mesh-shape", "4"],
-                                  ["--profile", "TeslaV100"]])
+@pytest.mark.parametrize("flag", [["--engine", "fleet"], ["--plan"],
+                                  ["--mesh-shape", "4"]],
+                         ids=["flag1", "flag2", "flag3"])
 def test_unported_launcher_paths_exit_naming_roadmap(flag):
     with pytest.raises(SystemExit, match="ROADMAP"):
         serve.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
@@ -114,3 +116,42 @@ def test_default_device_fails_loudly_without_a_card():
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         serve.main(["--arch", "granite-8b", "--smoke"])
+
+
+@pytest.mark.parametrize("flags", [[], ["--page-len", "4", "--num-pages", "9",
+                                        "--prefill-chunk", "8"]],
+                         ids=["derived", "given"])
+def test_paged_launcher_matches_reference_on_cpu(setup, flags, capsys):
+    """``--engine paged --device cpu``: the page-length rationale and the
+    books of the JAX launcher, and no flash launch. (The launchers make
+    their own random weights, so the tokens differ; tests/
+    test_torch_paged.py holds them to the reference on shared weights.)"""
+    jcfg, jparams, _, _ = setup
+    argv = ["--arch", "granite-8b", "--smoke", "--engine", "paged",
+            "--requests", "5", "--max-len", "48", "--slots", "3", *flags]
+    before = fa.launches
+    out = serve.main([*argv, "--device", "cpu"])
+    assert fa.launches == before
+    ours = capsys.readouterr().out
+    jargs = jserve.build_parser().parse_args(argv)
+    jserve._engine_run(jcfg, jparams, jargs)
+    theirs = capsys.readouterr().out
+
+    def books(text):      # all but the wall clock and the tokens
+        return [ln.replace(" device=cpu", "") for ln in text.splitlines()
+                if "ms (" not in ln and "sample tokens" not in ln]
+
+    assert books(ours) == books(theirs)
+    if flags:
+        assert "page_len=4 (given)" in ours and "preemptions=0" not in ours
+    else:
+        assert "cost-model derived" in ours and "<-- chosen" in ours
+    eng = out["engine"]
+    assert len(out["finished"]) == 5 and eng.alloc.allocated_pages == 0
+
+
+@pytest.mark.parametrize("name", ["TeslaV100", "GTX980"])
+def test_launcher_refuses_a_gpu_profile(name):
+    with pytest.raises(SystemExit, match="tpu-family"):
+        serve.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
+                    "--profile", name])
