@@ -11,17 +11,45 @@ non-zero. Phases:
 
   device   the card's name and power limit (nvidia-smi) and torch's name
   build    all six kernels, one nvcc each, started together; ptxas
-           registers, shared memory and spills
+           registers, shared memory and spills; the HGMMA instructions in
+           the bf16 flash kernels' SASS (cuobjdump), which must be there
   check    the flash kernel against its plain PyTorch version on the card,
-           at granite-8b's head shapes, in bfloat16 and float32
-  times    kernel, plain version, the PyTorch library call and the bound
+           bf16 (the tensor-core route) and float32 (the FMA route), at
+           granite-8b's heads over ragged and long lengths, small head dims
+           and three GQA ratios; bf16 also by the worst relative RMS of a
+           64-row tile, beside the reading of one skipped kv tile
+  times    kernel, plain version, the PyTorch library call and the bound,
+           each kernel and library call also as device time per launch
+           from a torch.profiler trace (the event mean of back-to-back
+           calls is set by the host where the kernel is short); a trace
+           that misses kernels is taken again, and flagged if it stays
+           short
+  check    the rmsnorm kernel against its plain version at granite-8b's
+           and mistral-large's widths and a width that takes the scalar
+           tail, float32 and bfloat16, and its ValueError on CUDA tensors
+  times    rmsnorm beside plain, torch.nn.functional.rms_norm and bound ms
+  check    the measurement kernels (pchase, memcpy, dbuf_copy, strided)
+           against their plain versions on the card, exactly, at the
+           paper's sizes (1 GiB copies, a 64 MB chase, the strided probe
+           at every stride 1-257 of its timed shapes), and each
+           divisibility ValueError on CUDA tensors
+  times    the same kernels' ms beside plain, library and bound ms
+  measure  the paper's measurement path end to end: P-chase cycles per
+           access at L1, L2 and device-memory footprints (gated L1 < L2 <
+           device memory), Wong's and Saavedra's curves through the trace
+           backend with their classic readings, copy throughput, the
+           dbuf_copy depth curve and the strided probe's stride curve at
+           (128, 256) and (1024, 32) float32, device time beside the bank
+           conflict degree its addresses give
   serving  full-width granite-8b (36 layers, random bf16 weights from a
            seed) through the launcher's fixed-batch loop and its dense
            engine; every prefill must launch the flash kernel once per
-           layer, and flash prefill logits must match the "ref" path's in
-           float32; then a warm prefill and a warm run of decode steps
-           under torch.profiler, for the device's busy time beside the wall
-           time
+           layer, on its bf16 tensor-core route, and flash prefill logits
+           must match the "ref" path's in float32; then a warm prefill and
+           a warm run of decode steps under torch.profiler, for the
+           device's busy time beside the wall time (these phases run last:
+           a torch.profiler trace taken after their large traces misses
+           kernels)
   paged    the same weights and workload through the launcher's paged
            engine (pages sized by the cost model: 128 tokens), checked
            after every tick, with no leaked page, at most a page of slack
@@ -31,20 +59,6 @@ non-zero. Phases:
            lengths so that it must preempt; and in float32 at 4 layers, the
            first decode logits of the paged engine against the dense
            engine's, gated
-  check    the rmsnorm kernel against its plain version at granite-8b's
-           and mistral-large's widths and a width that takes the scalar
-           tail, float32 and bfloat16, and its ValueError on CUDA tensors
-  times    rmsnorm beside plain, torch.nn.functional.rms_norm and bound ms
-  check    the measurement kernels (pchase, memcpy, dbuf_copy, strided)
-           against their plain versions on the card, exactly, at the
-           paper's sizes (1 GiB copies, a 64 MB chase), and each
-           divisibility ValueError on CUDA tensors
-  times    the same kernels' ms beside plain, library and bound ms
-  measure  the paper's measurement path end to end: P-chase cycles per
-           access at L1, L2 and device-memory footprints (gated L1 < L2 <
-           device memory), Wong's and Saavedra's curves through the trace
-           backend with their classic readings, copy throughput, the
-           dbuf_copy depth curve and the strided probe's stride curve
 
 Then one line ``{"kernels": [...]}``, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -80,6 +94,24 @@ LOGITS_REL_RMS_TOL = 1e-3
 #: the dense prefill, the plain masked branch in the paged chunks), whose
 #: float32 difference is about 1e-6 of a logit
 PAGED_REL_RMS_TOL = 1e-4
+#: calls in one torch.profiler trace of a kernel's device time
+PROFILED_CALLS = 20
+#: traces taken of one window before a trace that stays short is flagged
+TRACE_ATTEMPTS = 3
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: runtime and driver calls that start device work
+LAUNCH_CALL = re.compile(r"Launch|Memcpy|Memset")
+#: spin kernels launched before and after a traced window, and the clock
+#: cycles of each (about 66 us at the H100's 1.98 GHz)
+SETTLING_CALLS = 8
+SETTLING_SPIN_CYCLES = 1 << 17
+#: bf16 flash against its plain version: the worst relative RMS
+#: difference over the (64 rows, D) tiles of every head (ref.tile_rel_rms).
+#: The bf16 rounding of P and of the output gives about 2.6e-3 (an
+#: emulation of the kernel's rounding in plain PyTorch, bh 4 x S 2048);
+#: one head's last kv tile skipped gives 0.13 there and more at shorter
+#: lengths. The allclose at TOL alone lets such a fault pass at S 2048.
+FLASH_TILE_REL_RMS_TOL = 1e-2
 KERNELS = ["flash_attention", "pchase", "memcpy", "dbuf_copy", "strided",
            "rmsnorm"]
 GIB = 1 << 30
@@ -117,6 +149,173 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def traced(torch, fn, path: Path) -> list[dict]:
+    """The events of one call of ``fn`` under torch.profiler, as its
+    chrome trace at ``path`` holds them. The call is bracketed by
+    SETTLING_CALLS spin kernels on each side: the card's traces lose the
+    device events of the first and last few launches of a trace
+    (PERF.md, Findings), and these are then the spins'."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SETTLING_CALLS):
+            torch.cuda._sleep(SETTLING_SPIN_CYCLES)
+        fn()
+        for _ in range(SETTLING_CALLS):
+            torch.cuda._sleep(SETTLING_SPIN_CYCLES)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    return json.loads(path.read_text())["traceEvents"]
+
+
+def window(events: list[dict], settling: int = SETTLING_CALLS
+           ) -> tuple[list[dict], list[dict] | None]:
+    """A trace of :func:`traced` without its settling spins: the device
+    events (kernels, copies, memsets) of the call, and its runtime or
+    driver calls that start device work but have no device event in the
+    trace, matched by correlation id (each call's name and how many such
+    calls of the window come after it; None when the trace holds no
+    such call). The spins are the first and last ``settling`` calls."""
+    calls = sorted((e for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and LAUNCH_CALL.search(e.get("name", ""))
+                    and "correlation" in e.get("args", {})),
+                   key=lambda e: e["ts"])
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS]
+    if not calls:
+        return dev, None
+    spins = {e["args"]["correlation"]
+             for e in calls[:settling] + calls[len(calls) - settling:]}
+    inner = calls[settling:len(calls) - settling]
+    dev = [e for e in dev
+           if e.get("args", {}).get("correlation") not in spins]
+    seen = {e.get("args", {}).get("correlation") for e in dev}
+    return dev, [{"call": e["name"], "calls_after": len(inner) - 1 - i}
+                 for i, e in enumerate(inner)
+                 if e["args"]["correlation"] not in seen]
+
+
+def complete_trace(torch, fn, path: Path, is_complete) -> tuple[list, dict]:
+    """Trace one call of ``fn`` until ``is_complete(device events)`` holds
+    and no launch of the trace lacks its device event, at most
+    TRACE_ATTEMPTS times. Returns the device events of the first complete
+    trace (else of the last) and how the traces went. A trace that stays
+    short is flagged in the record and on stderr, never averaged as if
+    whole."""
+    short = []
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        dev, missing = window(traced(torch, fn, path))
+        ok = not missing and is_complete(dev)
+        if ok:
+            break
+        short.append({"device_events": len(dev),
+                      "missing_calls": (missing or [])[:8]})
+    info = {"device_events": len(dev),
+            "missing_events": None if missing is None else len(missing),
+            "attempts": attempt, "complete": ok, "short_attempts": short}
+    if not ok:
+        print(f"warning: torch.profiler traces of {path.name} stayed short "
+              f"after {attempt} attempts: {info}", file=sys.stderr, flush=True)
+    return dev, info
+
+
+def device_ms(torch, fn, iters: int, name: str | None = None
+              ) -> tuple[float, dict]:
+    """Device time of ``fn`` per call, from a torch.profiler trace of
+    ``iters`` calls after a warm one, and how complete the trace was. With
+    ``name``: the mean duration of the kernels whose name holds it (the
+    kernel alone, without the wrapper's host work), of which the trace
+    must hold exactly ``iters``. Without: every kernel, copy and memset of
+    the calls over ``iters``; each kernel name must then come a whole
+    number of times a call."""
+    fn()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    def whole(dev):
+        if name is not None:
+            return sum(name in e["name"] for e in dev) == iters
+        counts: dict[str, int] = {}
+        for e in dev:
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+        return bool(counts) and all(c % iters == 0 for c in counts.values())
+
+    dev, info = complete_trace(torch, calls, ROOT / "build" / "repro_torch"
+                               / "trace_times.json", whole)
+    if name is not None:
+        dev = [e for e in dev if name in e["name"]]
+    check(bool(dev), f"no device event ({name or 'any'}) in a trace of "
+          f"{iters} calls")
+    info["calls"] = iters
+    return sum(e["dur"] for e in dev) / (iters if info["complete"]
+                                         else len(dev)) / 1e3, info
+
+
+def kernel_times(torch, fn, plain, library, iters: int, name: str) -> dict:
+    """A kernel's event mean and device ms beside its plain version's and
+    its library call's (``library`` None where there is none). A trace
+    takes at most PROFILED_CALLS calls."""
+    traced_calls = min(iters, PROFILED_CALLS)
+    dev, dev_trace = device_ms(torch, fn, traced_calls, name)
+    lib, lib_trace = (device_ms(torch, library, traced_calls) if library
+                      else (None, None))
+    return dict(
+        ms=time_ms(torch, fn, iters), device_ms=dev, device_trace=dev_trace,
+        plain_ms=time_ms(torch, plain, iters),
+        library_ms=time_ms(torch, library, iters) if library else None,
+        library_device_ms=lib, library_device_trace=lib_trace)
+
+
+def disassembler() -> str | None:
+    """cuobjdump beside nvcc, or the one Triton's package carries."""
+    import importlib.util
+    from repro_torch.kernels import _build
+    candidates = [Path(_build.nvcc()).parent / "cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.submodule_search_locations:
+        candidates += [Path(p) / "backends" / "nvidia" / "bin" / "cuobjdump"
+                       for p in spec.submodule_search_locations]
+    return next((str(c) for c in candidates if c.exists()), None)
+
+
+def sass_counts(library: Path, opcode: str) -> dict:
+    """How many SASS instructions of ``opcode`` each kernel of a built
+    library holds, from ``cuobjdump -sass``; or that no disassembler was
+    found."""
+    tool = disassembler()
+    if tool is None:
+        return {"sass": "no disassembler found"}
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in out.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(rf"\b{opcode}\b", line):
+            counts[name] += 1
+    return {"tool": tool, "opcode": opcode, "per_kernel": counts}
+
+
+def conflict_degree(n: int, w: int, stride: int) -> int:
+    """The most distinct 4-byte words in one bank that a warp's read of the
+    strided kernel touches: lanes on rows (i * stride) % n, one column,
+    rows of w + 1 words (csrc/strided.cu)."""
+    worst = 1
+    for g0 in range(0, n, 32):
+        for col in range(min(w, 32)):
+            banks: dict[int, set] = {}
+            for i in range(g0, min(g0 + 32, n)):
+                addr = (i * stride % n) * (w + 1) + col
+                banks.setdefault(addr % 32, set()).add(addr)
+            worst = max(worst, max(len(a) for a in banks.values()))
+    return worst
+
+
 def attention_bound(bh, bhkv, sq, sk, d, causal, itemsize, flop_rate):
     """Least time (ms) for the work: q, k, v read once and o written once
     at the memory rate, or the products of the pairs the mask keeps at
@@ -129,27 +328,31 @@ def attention_bound(bh, bhkv, sq, sk, d, causal, itemsize, flop_rate):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_busy(torch, fn, trace_path: Path) -> dict:
+def device_busy(torch, fn, trace_path: Path,
+                expected: dict[str, int] | None = None) -> dict:
     """Wall ms of one warm call of ``fn`` (host clock, ending in a
-    synchronize), then the device's busy ms in a second call traced by
-    torch.profiler: the union of its kernel, memcpy and memset spans."""
-    from torch.profiler import ProfilerActivity, profile
+    synchronize), then the device's busy ms in another call traced by
+    torch.profiler: the union of its kernel, memcpy and memset spans.
+    ``expected`` gives, for a kernel name's substring, how many such
+    kernels a call launches; the trace is taken again while it holds
+    fewer, or while a launch in it lacks its device event."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(str(trace_path))
-    return {"wall_ms": wall_ms, **busy_from_trace(trace_path, wall_ms)}
+
+    def whole(dev):
+        return all(sum(k in e["name"] for e in dev) == n
+                   for k, n in (expected or {}).items())
+
+    dev, info = complete_trace(torch, fn, trace_path, whole)
+    return {"wall_ms": wall_ms, **busy_from_trace(dev, wall_ms),
+            "trace": {**info, "expected": expected}}
 
 
-def busy_from_trace(trace_path: Path, wall_ms: float) -> dict:
-    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+def busy_from_trace(events: list[dict], wall_ms: float) -> dict:
     busy_us, end = 0.0, float("-inf")
     by_name: dict[str, float] = {}
     for e in sorted(events, key=lambda e: e["ts"]):
@@ -162,9 +365,8 @@ def busy_from_trace(trace_path: Path, wall_ms: float) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"device_busy_ms": busy_ms if events else None,
             "idle_share": 1 - busy_ms / wall_ms if events else None,
-            "device_events": len(events),
             "flash_ms": sum(v for k, v in by_name.items()
-                            if "flash_fwd" in k) / 1e3,
+                            if "flash_wgmma" in k or "flash_fwd" in k) / 1e3,
             "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
 
 
@@ -213,10 +415,10 @@ def common_prefix(a: list, b: list) -> int:
                 min(len(a), len(b)))
 
 
-def rmsnorm_phase(torch, dev, card: str, launches: int) -> dict:
+def rmsnorm_phase(torch, dev, card: str) -> dict:
     """Check the rmsnorm kernel against its plain version on the card, then
-    time it. ``launches`` is its count from the serving path's run.
-    Returns its kernel record."""
+    time it. Returns its kernel record; its launches on the serving path
+    are filled in after that path has run."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
 
@@ -264,11 +466,12 @@ def rmsnorm_phase(torch, dev, card: str, launches: int) -> dict:
     for rows in (1024, 65536):
         x, sc = inputs(rows, 4096, torch.bfloat16)
         iters = 200 if rows == 1024 else 20
-        times[rows] = dict(
-            ms=time_ms(torch, lambda: rn.rmsnorm(x, sc), iters),
-            plain_ms=time_ms(torch, lambda: ref.rmsnorm_ref(x, sc), iters),
-            library_ms=time_ms(torch, lambda: torch.nn.functional.rms_norm(
-                x, (4096,), weight=sc, eps=1e-6), iters),
+        times[rows] = kernel_times(
+            torch, lambda: rn.rmsnorm(x, sc), lambda: ref.rmsnorm_ref(x, sc),
+            lambda: torch.nn.functional.rms_norm(x, (4096,), weight=sc,
+                                                 eps=1e-6),
+            iters, "rmsnorm_")
+        times[rows].update(
             bound_ms=(2 * rows * 4096 + 4096) * 2 / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes")
         record("times", kernel="rmsnorm", dtype="bfloat16",
@@ -277,11 +480,12 @@ def rmsnorm_phase(torch, dev, card: str, launches: int) -> dict:
     return {"name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:16",
-            "launches": launches,
+            "launches": None,
             "max_abs_err": errs[("bfloat16", 1024, 4096)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
             "shape": "bf16 x (1024, 4096), scale (4096,)",
             "times_65536x4096": times[65536], "card": card}
 
@@ -324,7 +528,7 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             eng = checked(serve._paged_engine(cfg, params, args))
-            fa.launches = 0
+            fa.reset_launches()
             torch.cuda.reset_peak_memory_stats()
             res = serve._engine_run(cfg, params, args, engine=eng)
         print(out.getvalue(), end="", flush=True)
@@ -514,14 +718,18 @@ def measurement(torch, dev, card: str) -> list[dict]:
     exact("dbuf_copy", dbuf.dbuf_copy(two, block_rows=16, num_buffers=4),
           dbuf.dbuf_copy_plain(two, block_rows=16, num_buffers=4),
           shape=[32, 256], block_rows=16, num_buffers=4)
-    for n in (32, 64, 128):
-        x = randn((n, 256), torch.float32)
+    # the timed (128, 256) and its smaller row counts, and the (1024, 32)
+    # of the measure phase's second stride curve; the times and the curves
+    # run on the values checked here
+    checked = {}
+    for n, w in ((32, 256), (64, 256), (128, 256), (1024, 32)):
+        x = checked[(n, w)] = randn((n, w), torch.float32)
         ok = all(torch.equal(st.strided_gather(x, stride=s),
                              st.strided_gather_plain(x, stride=s))
                  for s in range(1, 258))
-        record("check", kernel="strided", shape=[n, 256], strides="1..257",
+        record("check", kernel="strided", shape=[n, w], strides="1..257",
                exact=ok)
-        check(ok, f"strided disagrees with its plain version at n={n}")
+        check(ok, f"strided disagrees with its plain version at {n}x{w}")
 
     def raises(fn) -> bool:
         try:
@@ -557,9 +765,12 @@ def measurement(torch, dev, card: str) -> list[dict]:
     times["pchase"] = dict(
         ms=time_ms(torch, lambda: pc.pchase_trace(big, iterations=chase_k),
                    3, warmup=1),
+        **dict(zip(("device_ms", "device_trace"), device_ms(
+            torch, lambda: pc.pchase_trace(big, iterations=chase_k), 2,
+            "pchase_kernel"))),
         plain_ms=time_ms(torch, lambda: pc.pchase_trace_plain(
             big, iterations=chase_k), 2, warmup=1),
-        library_ms=None,
+        library_ms=None, library_device_ms=None,
         bound_ms=chase_k * 8 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         latency_bound_ms=big_cycles.cycles.sum().item() / clock_hz * 1e3,
         cycles_per_access=spread(torch, big_cycles.cycles),
@@ -569,25 +780,24 @@ def measurement(torch, dev, card: str) -> list[dict]:
     out = torch.empty_like(x1g)
     copy_bound = 2 * GIB / HBM_BYTES_PER_S * 1e3
     times["memcpy"] = dict(
-        ms=time_ms(torch, lambda: mc.memcpy(x1g), 10),
-        plain_ms=time_ms(torch, lambda: mc.memcpy_plain(x1g), 10),
-        library_ms=time_ms(torch, lambda: out.copy_(x1g), 10),
+        **kernel_times(torch, lambda: mc.memcpy(x1g),
+                       lambda: mc.memcpy_plain(x1g), lambda: out.copy_(x1g),
+                       10, "memcpy_kernel"),
         bound_ms=copy_bound, bound_by="bytes",
         shape="float32 (262144, 1024), 1 GiB, block_rows 256")
     times["dbuf_copy"] = dict(
-        ms=time_ms(torch, lambda: dbuf.dbuf_copy(x1g), 10),
-        plain_ms=time_ms(torch, lambda: dbuf.dbuf_copy_plain(x1g), 10),
-        library_ms=time_ms(torch, lambda: out.copy_(x1g), 10),
+        **kernel_times(torch, lambda: dbuf.dbuf_copy(x1g),
+                       lambda: dbuf.dbuf_copy_plain(x1g),
+                       lambda: out.copy_(x1g), 10, "dbuf_kernel"),
         bound_ms=copy_bound, bound_by="bytes",
         shape="float32 (262144, 1024), 1 GiB, block_rows 256, num_buffers 2")
-    xs = randn((128, 256), torch.float32)
+    xs = checked[(128, 256)]
     idx = st.gather_index(128, 1, dev)
     times["strided"] = dict(
-        ms=time_ms(torch, lambda: st.strided_gather(xs, stride=1), 200),
-        plain_ms=time_ms(torch, lambda: st.strided_gather_plain(
-            xs, stride=1), 200),
-        library_ms=time_ms(torch, lambda: torch.index_select(xs, 0, idx),
-                           200),
+        **kernel_times(torch, lambda: st.strided_gather(xs, stride=1),
+                       lambda: st.strided_gather_plain(xs, stride=1),
+                       lambda: torch.index_select(xs, 0, idx), 200,
+                       "strided_kernel"),
         bound_ms=2 * xs.numel() * 4 / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", shape="float32 (128, 256), 128 KB, stride 1")
     for name, t in times.items():
@@ -662,13 +872,21 @@ def measurement(torch, dev, card: str) -> list[dict]:
            tile_bytes=dbuf._library().repro_dbuf_tile_bytes(), depth=depth,
            card=card)
 
-    stride_curve = {}
-    for s in (1, 2, 3, 4, 8, 16, 32, 33, 64, 128):
-        stride_curve[s] = {
-            "ms": time_ms(torch, lambda: ops.strided_gather(xs, s), 100),
-            "gcd_with_32": math.gcd(s, 32)}
-    record("measure", step="strided_stride_curve", shape=[128, 256],
-           curve=stride_curve, card=card)
+    # the probe's (128, 256) and a (1024, 32) whose 32 rows a warp reads
+    # stay distinct up to stride 32, so that the conflicts reach 32-way
+    for xc in (xs, checked[(1024, 32)]):
+        n, w = xc.shape
+        stride_curve = {}
+        for s in (1, 2, 3, 4, 8, 16, 32, 33, 64, 128):
+            dev, dev_trace = device_ms(torch, lambda: ops.strided_gather(
+                xc, s), PROFILED_CALLS, "strided_kernel")
+            stride_curve[s] = {
+                "ms": time_ms(torch, lambda: ops.strided_gather(xc, s), 100),
+                "device_ms": dev, "device_trace": dev_trace,
+                "gcd_with_32": math.gcd(s, 32),
+                "conflict_ways": conflict_degree(n, w, s)}
+        record("measure", step="strided_stride_curve", shape=[n, w],
+               curve=stride_curve, card=card)
 
     counts = {name: m.launches for name, m in mods.items()}
     record("measure", step="launches", launches=counts)
@@ -699,6 +917,7 @@ def main() -> int:
     from repro_torch.kernels import dbuf_copy as dbuf
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import pchase as pc
+    from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import strided as st
     from repro_torch.launch import serve
@@ -716,20 +935,34 @@ def main() -> int:
     # -- build ----------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build(KERNELS)
-    smem = fa._library().repro_flash_attention_smem_bytes
+    falib = fa._library()
     pclib, dblib = pc._library(), dbuf._library()
+    flash_sass = sass_counts(built["flash_attention"].path, "HGMMA")
     record("build", seconds=time.perf_counter() - t0,
            libraries={n: {"seconds": b.seconds,
                           "path": str(b.path.relative_to(ROOT)),
                           "ptxas": ptxas_summary(b.log)}
                       for n, b in built.items()},
-           flash_dynamic_smem_bytes={d: smem(d) for d in (16, 32, 64, 128)},
+           flash_f32_dynamic_smem_bytes={
+               d: falib.repro_flash_attention_smem_bytes(d)
+               for d in (16, 32, 64, 128)},
+           flash_bf16_ctas={f"S {sq} D 128": {
+               "warpgroups": falib.repro_flash_bf16_warpgroups(sq),
+               "dynamic_smem_bytes": falib.repro_flash_bf16_smem_bytes(
+                   sq, 128)}
+               for sq in (101, 256, 2048)},
+           flash_sass=flash_sass,
            pchase_carveout_percent=pclib.repro_pchase_carveout(),
            pchase_static_smem_bytes=pclib.repro_pchase_smem_bytes(),
            pchase_chunk=pclib.repro_pchase_chunk(),
            dbuf_tile_bytes=dblib.repro_dbuf_tile_bytes(),
            dbuf_max_buffers=dblib.repro_dbuf_max_buffers(),
            strided_max_smem_bytes=st._library().repro_strided_max_smem())
+    if "per_kernel" in flash_sass:
+        hgmma = {k: v for k, v in flash_sass["per_kernel"].items()
+                 if "flash_wgmma" in k}
+        check(bool(hgmma) and all(hgmma.values()),
+              f"the bf16 flash kernels hold no HGMMA instruction: {hgmma}")
 
     # -- check: kernel against its plain version --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -738,26 +971,65 @@ def main() -> int:
         return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
                      for shape in ((bh, sq, d), (bhkv, sk, d), (bhkv, sk, d)))
 
+    def skipped_kv_tile(q, k, v, want, h, hkv, causal):
+        """The tile gate's reading of a kernel that skipped the last 64-row
+        kv tile of the first head (its output from the plain version on
+        k, v without those rows); None where there is one kv tile."""
+        cut = (k.shape[1] - 1) // 64 * 64
+        if cut == 0:
+            return None
+        faulted = want.clone()
+        faulted[0] = fa.flash_attention_plain(
+            q, k[:, :cut], v[:, :cut], num_q_heads=h, num_kv_heads=hkv,
+            causal=causal)[0]
+        return ref.tile_rel_rms(faulted, want)
+
     errs = {}
-    cases = [(1, s, s, True) for s in (37, 256, 2048)] + [
-        (4, 256, 256, True), (1, 256, 512, False)]
+    # (bh, H, Hkv, sq, sk, d, causal): granite-8b's heads at the serving
+    # path's lengths (the dense engine's prompts of 4-255 tokens, the
+    # loop's 4 x 256) and beyond, a rectangular non-causal case, the small
+    # head dims and the GQA ratios of tests/test_kernels.py
+    cases = [(32, 32, 8, s, s, 128, True) for s in (37, 101, 255, 256, 2048)]
+    cases += [(128, 32, 8, 256, 256, 128, True),
+              (32, 32, 8, 128, 512, 128, False)]
+    cases += [(8, 8, 8, 96, 96, d, True) for d in (16, 32, 64)]
+    cases += [(h, h, hkv, 256, 256, 64, True)
+              for h, hkv in ((8, 2), (4, 1), (16, 8))]
     for dname in ("bfloat16", "float32"):
         dtype = getattr(torch, dname)
-        for batch, sq, sk, causal in cases:
-            q, k, v = qkv(32 * batch, 8 * batch, sq, sk, 128, dtype)
-            kw = dict(num_q_heads=32, num_kv_heads=8, causal=causal)
+        for bh, h, hkv, sq, sk, d, causal in cases:
+            q, k, v = qkv(bh, bh // h * hkv, sq, sk, d, dtype)
+            kw = dict(num_q_heads=h, num_kv_heads=hkv, causal=causal,
+                      block_q=sq, block_k=sk)
+            before = dict(fa.route_launches)
             got = fa.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            want = fa.flash_attention_plain(q, k, v, **kw)
+            route = next(r for r, n in fa.route_launches.items()
+                         if n != before[r])
+            want = fa.flash_attention_plain(q, k, v, num_q_heads=h,
+                                            num_kv_heads=hkv, causal=causal)
             err = (got.float() - want.float()).abs().max().item()
             ok = torch.allclose(got.float(), want.float(), atol=TOL[dname],
                                 rtol=TOL[dname])
-            errs[(dname, batch, sq, sk, causal)] = err
+            tiles = {}
+            if dname == "bfloat16":
+                tiles = {"tile_rel_rms": ref.tile_rel_rms(got, want),
+                         "tol_tile_rel_rms": FLASH_TILE_REL_RMS_TOL,
+                         "skipped_kv_tile_rel_rms": skipped_kv_tile(
+                             q, k, v, want, h, hkv, causal)}
+                ok = ok and tiles["tile_rel_rms"] <= FLASH_TILE_REL_RMS_TOL
+            errs[(dname, bh, sq, sk, d, h, hkv, causal)] = err
             record("check", kernel="flash_attention", dtype=dname,
-                   shape=[32 * batch, sq, sk, 128], causal=causal,
-                   max_abs_err=err, tol=TOL[dname], ok=ok)
+                   shape=[bh, sq, sk, d], heads=[h, hkv], causal=causal,
+                   route=route, max_abs_err=err, tol=TOL[dname], ok=ok,
+                   **tiles)
+            fault = tiles.get("skipped_kv_tile_rel_rms")
+            check(fault is None or fault > FLASH_TILE_REL_RMS_TOL,
+                  f"a skipped kv tile reads {fault}, inside the tile gate")
+            check(route == fa.ROUTES[dtype],
+                  f"{dname} flash took the {route} route")
             check(ok, f"flash_attention disagrees with its plain version "
-                      f"({dname}, B={batch}, sq={sq}, sk={sk})")
+                      f"({dname}, bh={bh}, sq={sq}, sk={sk}, d={d})")
     q = torch.zeros((32, 300, 128), device=dev, dtype=torch.bfloat16)
     try:
         fa.flash_attention(q, q[:8], q[:8], num_q_heads=32, num_kv_heads=8)
@@ -768,26 +1040,34 @@ def main() -> int:
     check(raised, "seq 300 with block 256 did not raise ValueError")
 
     # -- times ----------------------------------------------------------------
+    # bf16, causal, granite-8b's heads: one dense-engine prompt (bh 32 at a
+    # ragged 101 and at 256), the loop's prefill (bh 128 x 256), and 2048
     times = {}
-    for s in (256, 2048):
-        q, k, v = qkv(32, 8, s, s, 128, torch.bfloat16)
-        kw = dict(num_q_heads=32, num_kv_heads=8, causal=True)
-        iters = 50 if s == 256 else 10
-        kernel_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
-                            iters)
-        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
-                                                                   **kw), iters)
-        q4, k4, v4 = q[None], k[None], v[None]
-        library_ms = time_ms(torch, lambda: torch.nn.functional.
-                             scaled_dot_product_attention(
-                                 q4, k4, v4, is_causal=True, enable_gqa=True),
-                             iters)
-        bound_ms, bound_by = attention_bound(32, 8, s, s, 128, True, 2,
-                                             BF16_FLOP_PER_S)
-        times[s] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                        bound_ms=bound_ms, bound_by=bound_by)
+    for bh, s in ((32, 256), (32, 2048), (128, 256), (32, 101)):
+        q, k, v = qkv(bh, bh // 4, s, s, 128, torch.bfloat16)
+        kw = dict(num_q_heads=32, num_kv_heads=8, causal=True, block_q=s,
+                  block_k=s)
+        q4, k4, v4 = (t.view(bh // 32, -1, s, 128) for t in (q, k, v))
+        iters = 10 if s == 2048 else 50
+        t = kernel_times(
+            torch, lambda: fa.flash_attention(q, k, v, **kw),
+            lambda: fa.flash_attention_plain(q, k, v, num_q_heads=32,
+                                             num_kv_heads=8, causal=True),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, enable_gqa=True),
+            iters, "flash_wgmma")
+        t["bound_ms"], t["bound_by"] = attention_bound(
+            bh, bh // 4, s, s, 128, True, 2, BF16_FLOP_PER_S)
+        times[(bh, s)] = t
         record("times", kernel="flash_attention", dtype="bfloat16",
-               shape=[32, s, s, 128], causal=True, card=card, **times[s])
+               shape=[bh, s, s, 128], causal=True, card=card, **t)
+
+    # the kernels that the serving phases do not launch, checked and timed
+    # before them: torch.profiler traces taken after the serving phases'
+    # large traces miss kernels
+    rms_record = rmsnorm_phase(torch, dev, card)
+    measured = measurement(torch, dev, card)
+    torch.cuda.empty_cache()
 
     # -- serving: full-width granite-8b through the launcher -------------------
     cfg = dataclasses.replace(configs.get_config("granite-8b"),
@@ -806,26 +1086,31 @@ def main() -> int:
     rn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     loop_args = argparse.Namespace(batch=4, prompt_len=256, gen=16)
-    fa.launches = 0
+    fa.reset_launches()
     loop = serve._batch_loop(cfg, params, loop_args)
     launched = fa.launches
     main_launches += launched
+    main_routes = dict(fa.route_launches)
     toks = loop["tokens"]
     record("serving", step="loop", batch=4, prompt=256, gen=16,
            prefill_ms=loop["prefill_s"] * 1e3,
            decode_ms=loop["decode_s"] * 1e3,
            tokens=int(toks.numel()), flash_launches=launched,
-           prefill_calls=1)
+           flash_route_launches=dict(fa.route_launches), prefill_calls=1)
     check(launched == cfg.num_layers,
           f"loop launched flash {launched} times, not {cfg.num_layers} x 1")
+    check(fa.route_launches["bf16_wgmma"] == launched,
+          f"loop flash launches by route: {fa.route_launches}")
     check(tuple(toks.shape) == (4, 16) and 0 <= int(toks.min())
           and int(toks.max()) < cfg.vocab_size, "loop tokens out of range")
 
     dense_args = argparse.Namespace(requests=8, slots=4, max_len=768, seed=0,
                                     engine="dense")
-    fa.launches = 0
+    fa.reset_launches()
     run = serve._engine_run(cfg, params, dense_args)
     launched = fa.launches
+    dense_routes = dict(fa.route_launches)
+    main_routes = {r: n + dense_routes[r] for r, n in main_routes.items()}
     main_launches += launched
     eng, finished = run["engine"], run["finished"]
     dense_tokens = {r.uid: r.generated for r in finished}
@@ -833,7 +1118,8 @@ def main() -> int:
     record("serving", step="dense", requests=len(finished),
            tokens=sum(len(r.generated) for r in finished),
            ticks=stats["steps"], wall_ms=run["wall_s"] * 1e3,
-           flash_launches=launched, prefill_calls=dense_args.requests,
+           flash_launches=launched, flash_route_launches=dense_routes,
+           prefill_calls=dense_args.requests,
            max_memory_allocated=torch.cuda.max_memory_allocated())
     check(len(finished) == 8 and all(
         len(r.generated) == r.max_new_tokens for r in finished),
@@ -843,6 +1129,8 @@ def main() -> int:
     check(launched == cfg.num_layers * dense_args.requests,
           f"dense engine launched flash {launched} times, not "
           f"{cfg.num_layers} x {dense_args.requests}")
+    check(dense_routes["bf16_wgmma"] == launched,
+          f"dense flash launches by route: {dense_routes}")
 
     # flash against the plain "ref" path on the same weights (not counted):
     # in bf16, printed; in float32 at full depth, gated
@@ -852,16 +1140,16 @@ def main() -> int:
 
     def logits_pair(p, flash_cfg):
         flash, _ = T.prefill(p, flash_cfg, {"tokens": prompt})
-        ref, _ = T.prefill(p, dataclasses.replace(flash_cfg,
-                                                  attention_impl="ref"),
-                           {"tokens": prompt})
-        diff = flash - ref
-        return flash, {"rel_rms": (diff.norm() / ref.norm()).item(),
+        plain, _ = T.prefill(p, dataclasses.replace(flash_cfg,
+                                                    attention_impl="ref"),
+                             {"tokens": prompt})
+        diff = flash - plain
+        return flash, {"rel_rms": (diff.norm() / plain.norm()).item(),
                        "max_abs": diff.abs().max().item(),
-                       "max_abs_ref": ref.abs().max().item()}
+                       "max_abs_ref": plain.abs().max().item()}
 
     flash_logits, bf16 = logits_pair(params, cfg)
-    fa.launches = 0
+    fa.reset_launches()
     ref_loop = serve._batch_loop(ref_cfg, params, loop_args)
     agree = (ref_loop["tokens"] == toks).float().mean().item()
     ref_loop_launches = fa.launches
@@ -906,7 +1194,8 @@ def main() -> int:
 
     trace_dir = _build.BUILD_DIR
     record("serving", step="profile_prefill", batch=4, prompt=256,
-           **device_busy(torch, prefill, trace_dir / "trace_prefill.json"))
+           **device_busy(torch, prefill, trace_dir / "trace_prefill.json",
+                         expected={"flash_wgmma": cfg.num_layers}))
     record("serving", step="profile_decode", batch=4, steps=8,
            **device_busy(torch, decode, trace_dir / "trace_decode.json"))
 
@@ -917,19 +1206,24 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    t = times[256]
+    t = times[(32, 256)]
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
         "launches": main_launches,
-        "max_abs_err": errs[("bfloat16", 1, 256, 256, True)],
+        "max_abs_err": errs[("bfloat16", 32, 256, 256, 128, 32, 8, True)],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"],
+        "library_device_ms": t["library_device_ms"],
         "shape": "bf16 causal q (32, 256, 128), k/v (8, 256, 128)",
+        "kernel_route": "bf16_wgmma", "launches_by_route": main_routes,
+        "other_shapes": {f"bh {bh} S {sq}": v for (bh, sq), v in times.items()
+                         if (bh, sq) != (32, 256)},
         "card": card}]
-    kernels.append(rmsnorm_phase(torch, dev, card, serving_rmsnorm_launches))
-    kernels += measurement(torch, dev, card)
+    rms_record["launches"] = serving_rmsnorm_launches
+    kernels += [rms_record] + measured
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -115,3 +115,17 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what} launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
+
+
+def launch(fn, device, *args) -> int:
+    """Call the C entry ``fn(*args, stream)`` on ``device``'s current
+    stream; the device guard is entered only when ``device`` is not the
+    current device already. Returns what ``fn`` returns. The stream is
+    read as a raw pointer, as PyTorch's own generated kernels read it,
+    without building a ``torch.cuda.Stream`` a call."""
+    import torch
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, raw_stream(device.index))
+    return fn(*args, raw_stream(device.index))

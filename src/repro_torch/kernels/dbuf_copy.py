@@ -97,12 +97,10 @@ def dbuf_copy(x: torch.Tensor, *, block_rows: int = 256,
         raise ValueError("dbuf_copy's bulk copies need a 16-byte aligned "
                          "array")
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = lib.repro_dbuf_copy(
-            x.data_ptr(), out.data_ptr(), x.numel() * x.element_size(),
-            num_buffers,
-            torch.cuda.get_device_properties(x.device).multi_processor_count,
-            torch.cuda.current_stream().cuda_stream)
+    err = _build.launch(
+        lib.repro_dbuf_copy, x.device, x.data_ptr(), out.data_ptr(),
+        x.numel() * x.element_size(), num_buffers,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
     _build.check(lib, err, "dbuf_copy")
     launches += 1
     return out

@@ -61,11 +61,10 @@ def memcpy(x: torch.Tensor, *, block_rows: int = 256) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.repro_memcpy(
-            x.data_ptr(), out.data_ptr(), x.numel() * x.element_size(),
-            torch.cuda.get_device_properties(x.device).multi_processor_count,
-            torch.cuda.current_stream().cuda_stream)
+    err = _build.launch(
+        lib.repro_memcpy, x.device, x.data_ptr(), out.data_ptr(),
+        x.numel() * x.element_size(),
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
     _build.check(lib, err, "memcpy")
     launches += 1
     return out

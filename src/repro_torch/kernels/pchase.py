@@ -98,12 +98,11 @@ def _launch(padded: torch.Tensor, start: int, iterations: int,
     if iterations == 0:
         return out
     lib = _library()
-    with torch.cuda.device(padded.device):
-        err = lib.repro_pchase(
-            padded.data_ptr(), start, iterations, out.data_ptr(),
-            None if cycles is None else cycles.data_ptr(),
-            None if clocks is None else clocks.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    err = _build.launch(
+        lib.repro_pchase, padded.device, padded.data_ptr(), start,
+        iterations, out.data_ptr(),
+        None if cycles is None else cycles.data_ptr(),
+        None if clocks is None else clocks.data_ptr())
     _build.check(lib, err, "pchase")
     launches += 1
     return out

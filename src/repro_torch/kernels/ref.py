@@ -68,3 +68,20 @@ def bf16_ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         bits = t.contiguous().view(torch.int16).int()
         return torch.where(bits < 0, -(bits & 0x7FFF), bits)
     return (order(a) - order(b)).abs()
+
+
+def tile_rel_rms(got: torch.Tensor, want: torch.Tensor,
+                 rows: int = 64) -> float:
+    """The worst relative RMS difference of ``got`` from ``want`` over the
+    blocks of ``rows`` consecutive rows of each leading index: shape
+    ``(B, S, D)``, blocks of ``(rows, D)``, the last one ragged. A fault
+    confined to one head's tile of an attention output shows at its own
+    size here, where a global relative RMS would dilute it."""
+    b, s, d = want.shape
+    pad = -s % rows
+    g, w = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+            .view(b, -1, rows, d) for t in (got, want))
+    diff = (g - w).pow(2).sum((2, 3))
+    ref = w.pow(2).sum((2, 3))
+    return (diff / ref.clamp(min=torch.finfo(torch.float32).tiny)
+            ).sqrt().max().item()

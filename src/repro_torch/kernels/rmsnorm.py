@@ -68,11 +68,10 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     x, scale = x.contiguous(), scale.contiguous()
     out = torch.empty_like(x)
     lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.repro_rmsnorm(
-            x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d,
-            _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], eps,
-            torch.cuda.current_stream().cuda_stream)
+    err = _build.launch(
+        lib.repro_rmsnorm, x.device, x.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), rows, d, _DTYPE_CODES[x.dtype],
+        _DTYPE_CODES[scale.dtype], eps)
     _build.check(lib, err, "rmsnorm")
     launches += 1
     return out
