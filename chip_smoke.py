@@ -31,16 +31,22 @@ non-zero. Phases:
   check    the measurement kernels (pchase, memcpy, dbuf_copy, strided)
            against their plain versions on the card, exactly, at the
            paper's sizes (1 GiB copies, a 64 MB chase, the strided probe
-           at every stride 1-257 of its timed shapes), and each
-           divisibility ValueError on CUDA tensors
-  times    the same kernels' ms beside plain, library and bound ms
+           at every stride 1-257 of its timed shapes) and at the copies'
+           edges (memcpy from an unaligned start and with a short last
+           batch; dbuf_copy ending in a partial tile and a 13-byte tail at
+           every depth), and each ValueError on CUDA tensors (divisibility,
+           depth, dbuf_copy's unaligned start)
+  times    the same kernels' ms beside plain, library and bound ms; memcpy
+           and dbuf_copy in turns with copy_ (kernel, copy_, copy_,
+           kernel, five times), every turn recorded beside the medians,
+           and the host's time to issue one call of each
   measure  the paper's measurement path end to end: P-chase cycles per
            access at L1, L2 and device-memory footprints (gated L1 < L2 <
            device memory), Wong's and Saavedra's curves through the trace
            backend with their classic readings, copy throughput, the
-           dbuf_copy depth curve and the strided probe's stride curve at
-           (128, 256) and (1024, 32) float32, device time beside the bank
-           conflict degree its addresses give
+           dbuf_copy depth curve beside copy_ and the strided probe's
+           stride curve at (128, 256) and (1024, 32) float32, device time
+           beside the bank conflict degree its addresses give
   serving  full-width granite-8b (36 layers, random bf16 weights from a
            seed) through the launcher's fixed-batch loop and its dense
            engine; every prefill must launch the flash kernel once per
@@ -98,6 +104,11 @@ PAGED_REL_RMS_TOL = 1e-4
 PROFILED_CALLS = 20
 #: traces taken of one window before a trace that stays short is flagged
 TRACE_ATTEMPTS = 3
+#: rounds of kernel, library, library, kernel in the copies' timing
+COPY_ROUNDS = 5
+#: the spin ahead of the calls whose issue time the host clock takes
+#: (about 34 ms at the H100's 1.98 GHz)
+HOST_SPIN_CYCLES = 1 << 26
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: runtime and driver calls that start device work
 LAUNCH_CALL = re.compile(r"Launch|Memcpy|Memset")
@@ -266,6 +277,85 @@ def kernel_times(torch, fn, plain, library, iters: int, name: str) -> dict:
         plain_ms=time_ms(torch, plain, iters),
         library_ms=time_ms(torch, library, iters) if library else None,
         library_device_ms=lib, library_device_trace=lib_trace)
+
+
+def host_us(torch, fn, calls: int = 20) -> float:
+    """The host's time to issue one call of ``fn``, in us: the mean of
+    ``calls`` calls queued behind a spin kernel that keeps the card busy
+    for longer than they take to issue."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOST_SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def event_turns(torch, fns: dict, order: list[str], calls: int) -> dict:
+    """The event mean (:func:`time_ms`) of ``calls`` calls of ``fns[who]``
+    for each ``who`` of ``order`` in turn: each name's turns, in order."""
+    turns = {who: [] for who in fns}
+    for who in order:
+        turns[who].append(time_ms(torch, fns[who], calls))
+    return turns
+
+
+def device_turns(dev: list[dict], name: str) -> dict:
+    """Each call's device ms in a trace of calls in turns, in the order
+    they ran: the kernels whose name holds ``name``, and every other device
+    event (the library call's)."""
+    dev = sorted(dev, key=lambda e: e["ts"])
+    return {"kernel": [e["dur"] / 1e3 for e in dev if name in e["name"]],
+            "library": [e["dur"] / 1e3 for e in dev if name not in e["name"]]}
+
+
+def copy_times_in_turns(torch, fn, library, name: str,
+                        rounds: int = COPY_ROUNDS, calls: int = 10) -> dict:
+    """A copy kernel and its library call timed in turns: kernel, library,
+    library, kernel, ``rounds`` times. An event turn is the mean of
+    ``calls`` calls (:func:`time_ms`); a device turn is one call's device time in
+    one torch.profiler trace of the calls in the same order (the kernels
+    whose name holds ``name``; every other device event is the library
+    call's). The medians, each turn's value and the spread."""
+    import statistics
+    fns = {"kernel": fn, "library": library}
+    order = ["kernel", "library", "library", "kernel"] * rounds
+    events = event_turns(torch, fns, order, calls)
+
+    def in_order():
+        for who in order:
+            fns[who]()
+
+    def whole(dev):
+        k = sum(name in e["name"] for e in dev)
+        return k == 2 * rounds and len(dev) - k == 2 * rounds
+
+    in_order()
+    torch.cuda.synchronize()
+    dev, info = complete_trace(torch, in_order, ROOT / "build" / "repro_torch"
+                               / "trace_turns.json", whole)
+    device = device_turns(dev, name)
+    check(all(device.values()), f"no device event of {name} or of its "
+          "library call in a trace of the turns")
+
+    def med(turns):
+        return {w: statistics.median(v) for w, v in turns.items()}
+    ev, dv = med(events), med(device)
+    return dict(
+        ms=ev["kernel"], library_ms=ev["library"],
+        device_ms=dv["kernel"], library_device_ms=dv["library"],
+        device_trace=info,
+        turns={"order": "kernel, library, library, kernel", "rounds": rounds,
+               "calls_a_event_turn": calls, "event_ms": events,
+               "device_ms": device},
+        spread={kind: {w: [min(v), max(v)] for w, v in turns.items()}
+                for kind, turns in (("event_ms", events),
+                                    ("device_ms", device))},
+        no_slower_than_library={"event": ev["kernel"] <= ev["library"],
+                                "device": dv["kernel"] <= dv["library"]})
 
 
 def disassembler() -> str | None:
@@ -718,6 +808,25 @@ def measurement(torch, dev, card: str) -> list[dict]:
     exact("dbuf_copy", dbuf.dbuf_copy(two, block_rows=16, num_buffers=4),
           dbuf.dbuf_copy_plain(two, block_rows=16, num_buffers=4),
           shape=[32, 256], block_rows=16, num_buffers=4)
+    # the edge routes: memcpy from a start one byte past 16-byte alignment
+    # (its byte path) and an aligned size whose last batch is cut short;
+    # dbuf_copy at sizes that end in an 80-byte tile and a 13-byte tail, over
+    # fewer tiles than CTAs and over more, at every depth it takes
+    unaligned = randn((333 * 77 + 1,), torch.int8)[1:].view(333, 77)
+    ragged = randn((1021, 1027), torch.int8)
+    for y, block in ((unaligned, 111), (ragged, 1021)):
+        exact("memcpy", mc.memcpy(y, block_rows=block), mc.memcpy_plain(y),
+              dtype="torch.int8", shape=list(y.shape), block_rows=block,
+              start_mod_16=y.data_ptr() % 16, bytes_mod_16=y.numel() % 16)
+    tile = dbuf._library().repro_dbuf_tile_bytes()
+    for tiles in (3, 301):
+        n = tiles * tile + 5 * 16 + 13
+        y = randn((1, n), torch.int8)
+        for nb in range(1, dbuf._library().repro_dbuf_max_buffers() + 1):
+            exact("dbuf_copy", dbuf.dbuf_copy(y, block_rows=1, num_buffers=nb),
+                  dbuf.dbuf_copy_plain(y, block_rows=1, num_buffers=nb),
+                  dtype="torch.int8", shape=[1, n], num_buffers=nb,
+                  full_tiles=tiles, last_tile_bytes=80, tail_bytes=13)
     # the timed (128, 256) and its smaller row counts, and the (1024, 32)
     # of the measure phase's second stride curve; the times and the curves
     # run on the values checked here
@@ -750,6 +859,8 @@ def measurement(torch, dev, card: str) -> list[dict]:
             lambda: dbuf.dbuf_copy(x1g, num_buffers=0)),
         "dbuf_copy num_buffers above shared memory": raises(
             lambda: dbuf.dbuf_copy(x1g, num_buffers=64)),
+        "dbuf_copy unaligned start": raises(
+            lambda: dbuf.dbuf_copy(unaligned, block_rows=111)),
         "strided above one CTA's shared memory": raises(
             lambda: st.strided_gather(torch.ones((1024, 1024), device=dev),
                                       stride=3)),
@@ -779,16 +890,23 @@ def measurement(torch, dev, card: str) -> list[dict]:
     del big, big_plain
     out = torch.empty_like(x1g)
     copy_bound = 2 * GIB / HBM_BYTES_PER_S * 1e3
+    # the copies and copy_ in turns, since they sit within a few percent
     times["memcpy"] = dict(
-        **kernel_times(torch, lambda: mc.memcpy(x1g),
-                       lambda: mc.memcpy_plain(x1g), lambda: out.copy_(x1g),
-                       10, "memcpy_kernel"),
+        **copy_times_in_turns(torch, lambda: mc.memcpy(x1g),
+                              lambda: out.copy_(x1g), "memcpy_kernel"),
+        host_us=host_us(torch, lambda: mc.memcpy(x1g)),
+        library_host_us=host_us(torch, lambda: out.copy_(x1g)),
+        plain_ms=time_ms(torch, lambda: mc.memcpy_plain(x1g), 10),
         bound_ms=copy_bound, bound_by="bytes",
         shape="float32 (262144, 1024), 1 GiB, block_rows 256")
     times["dbuf_copy"] = dict(
-        **kernel_times(torch, lambda: dbuf.dbuf_copy(x1g),
-                       lambda: dbuf.dbuf_copy_plain(x1g),
-                       lambda: out.copy_(x1g), 10, "dbuf_kernel"),
+        **copy_times_in_turns(torch, lambda: dbuf.dbuf_copy(x1g),
+                              lambda: out.copy_(x1g), "dbuf_kernel"),
+        host_us=host_us(torch, lambda: dbuf.dbuf_copy(x1g)),
+        host_us_depth_8=host_us(
+            torch, lambda: dbuf.dbuf_copy(x1g, num_buffers=8)),
+        library_host_us=host_us(torch, lambda: out.copy_(x1g)),
+        plain_ms=time_ms(torch, lambda: dbuf.dbuf_copy_plain(x1g), 10),
         bound_ms=copy_bound, bound_by="bytes",
         shape="float32 (262144, 1024), 1 GiB, block_rows 256, num_buffers 2")
     xs = checked[(128, 256)]
@@ -863,13 +981,26 @@ def measurement(torch, dev, card: str) -> list[dict]:
     check(all(math.isfinite(v) and v > 0 for v in gbps.values()),
           f"memcpy throughput not positive: {gbps}")
 
-    depth = {}
+    # each depth after a turn of copy_ (not counted), and copy_ once more
+    # at the end, all timed alike; 6 launches a depth
+    dst = torch.empty_like(x1g)
+    depth, copy_turns = {}, []
     for nb in (1, 2, 3, 4, 6, 8):
+        copy_turns.append(time_ms(torch, lambda: dst.copy_(x1g), 5, warmup=1))
         ms = time_ms(torch, lambda: dbuf.dbuf_copy(x1g, num_buffers=nb), 5,
                      warmup=1)
-        depth[nb] = {"ms": ms, "gbps": 2 * GIB / ms / 1e6}
+        depth[nb] = {"ms": ms, "gbps": 2 * GIB / ms / 1e6,
+                     "bytes_in_flight_per_sm": nb * tile}
+    copy_turns.append(time_ms(torch, lambda: dst.copy_(x1g), 5, warmup=1))
+    del dst
+    copy_gbps = 2 * GIB / float(np.median(copy_turns)) / 1e6
     record("measure", step="dbuf_copy_depth", shape=list(x1g.shape),
-           tile_bytes=dbuf._library().repro_dbuf_tile_bytes(), depth=depth,
+           tile_bytes=tile, depth=depth, copy_ms_turns=copy_turns,
+           copy_gbps=copy_gbps,
+           depth1_below_depth2=depth[1]["gbps"] < depth[2]["gbps"],
+           from_depth2_within_2pct_of_copy=all(
+               d["gbps"] >= 0.98 * copy_gbps
+               for nb, d in depth.items() if nb >= 2),
            card=card)
 
     # the probe's (128, 256) and a (1024, 32) whose 32 rows a warp reads

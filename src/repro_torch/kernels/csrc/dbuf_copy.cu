@@ -4,32 +4,34 @@
 // Replaces: src/repro/kernels/dbuf_copy.py::_dbuf_kernel, the Pallas TPU
 // kernel (pallas_call at :75), a hand-rolled num_buffers-deep DMA pipeline
 // HBM -> VMEM -> HBM. Same function (out = x, bit for bit) and the same
-// schedule, per CTA, over the CTA's own tiles:
-//   * the prologue starts the inbound copies of tiles 0 .. nb-2;
-//   * step i starts the inbound copy of tile i + nb - 1 ahead, waits for
-//     tile i to arrive and starts its outbound copy;
-//   * a stage is drained (its outbound copy has finished reading shared
-//     memory) before an inbound copy reuses it;
-//   * the trailing outbound copies are waited on at the end.
-// The Pallas schedule starts tile i + nb - 1's inbound copy into the stage
-// of tile i - 1 without waiting for that tile's outbound copy (it waits for
-// it only at step i + nb - 1); here the stage is drained first, so an
-// inbound copy never overwrites bytes still being sent.
-// num_buffers is thus the depth in flight: with one stage the copy is
-// serial, with more the inbound copies overlap the outbound ones.
+// knob: num_buffers is the number of shared-memory stages in flight on each
+// SM, one pipeline an SM; with one stage the copy is serial.
 //
 // Bound on an H100 SXM: bytes, as for memcpy: 2 * bytes / 3.35 TB/s, 0.641
 // ms for 1 GiB.
 //
-// Design: the copies are 1-D TMA bulk copies (cp.async.bulk). One thread of
-// each CTA issues them all: inbound copies complete on one mbarrier per
-// stage (expect_tx with the tile's bytes, waited on by phase parity);
+// Design. The copies are 1-D TMA bulk copies (cp.async.bulk) of 24 KB
+// tiles; the last may be shorter (a multiple of 16 bytes), and the final
+// size % 16 bytes are copied by plain loads and stores. One thread of each of
+// the SM-count CTAs issues them all. Inbound copies complete on one mbarrier
+// a stage (expect_tx with the tile's bytes, waited on by phase parity);
 // outbound copies are bulk groups, drained with cp.async.bulk.wait_group
-// .read. The grid is one CTA per SM and CTA c copies tiles c, c + grid, ...,
-// so that the depth of one CTA's pipeline is the depth per SM. A tile is 16
-// KB; the last one may be shorter (a multiple of 16 bytes), and the final
-// size % 16 bytes are copied by plain loads and stores. Both pointers must
-// be 16-byte aligned, as bulk copies require (the wrapper checks).
+// .read. Every stage starts full. Step i waits for the i-th tile, starts its
+// outbound copy, then refills the stage of tile i - lag once at most `lag`
+// newer outbound copies still read shared memory: a stage is always drained
+// before an inbound copy reuses it (the Pallas schedule reuses one before;
+// ROADMAP.md), and the newest `lag` stores may stay in flight.
+//
+// A CTA claims its tiles one at a time from a counter on the card (atomicAdd;
+// the last CTA to finish sets it back to 0), so an SM that the memory system
+// serves faster copies more tiles. That, not the order of the copies, is what
+// the previous design lacked: with fixed shares (tiles c, c + grid, ..., the
+// Pallas grid order, or contiguous runs) the copy ended with the slowest SM's
+// share and ran 3-5% longer than torch's copy_ on an H100 SXM at every depth
+// and order. An L2 evict_first hint on the bulk copies gained nothing, and
+// tiles below 20 KB lost (copy_sweep.py at the repository root, whose
+// designs are in copy_variants.cu; PERF.md). Both pointers must be 16-byte
+// aligned, as bulk copies require (the wrapper checks).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -38,10 +40,17 @@
 
 namespace {
 
-constexpr int TILE_BYTES = 16 * 1024;
+constexpr int TILE_BYTES = 24 * 1024;
 constexpr int BAR_BYTES = 128;                    // the stages' mbarriers
 constexpr int MAX_SMEM = 232448;                  // 227 KB a CTA may opt in to
 constexpr int MAX_BUFFERS = (MAX_SMEM - BAR_BYTES) / TILE_BYTES;
+static_assert(MAX_BUFFERS * 8 <= BAR_BYTES, "one 8-byte mbarrier a stage");
+
+// Stores left in flight at a refill, the sweep's best at each depth: half
+// the stages at depth 3 and 4; none at depth 2, where the inbound copies
+// need both stages, nor from depth 6, where the loads alone hold 144 KB or
+// more in flight on each SM.
+__host__ __device__ constexpr int lag_for(int nb) { return nb == 3 || nb == 4 ? nb / 2 : 0; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -90,16 +99,27 @@ __device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t byt
   asm volatile("cp.async.bulk.commit_group;" : : : "memory");
 }
 
+// Wait until at most `lag` outbound copies are still reading shared memory
+// (an immediate in PTX, hence the switch over lag_for's values).
+__device__ __forceinline__ void drain_all_but(int lag) {
+  switch (lag) {
+    case 0: asm volatile("cp.async.bulk.wait_group.read 0;" : : : "memory"); break;
+    case 1: asm volatile("cp.async.bulk.wait_group.read 1;" : : : "memory"); break;
+    default: asm volatile("cp.async.bulk.wait_group.read 2;" : : : "memory"); break;
+  }
+}
+
+// One pipeline: thread 0 of the CTA issues every copy of the tiles it
+// claims from counter[0]; counter[1] counts the CTAs that are done.
 __global__ void __launch_bounds__(32)
-dbuf_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, long long nbytes,
-            int nb) {
+dbuf_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, long long nbytes, int nb,
+            unsigned long long* counter) {
   extern __shared__ __align__(128) uint8_t smem[];
   if (threadIdx.x != 0) return;
   const long long full = nbytes / TILE_BYTES;
   const uint32_t last = static_cast<uint32_t>(nbytes % TILE_BYTES) & ~15u;
   const long long ntiles = full + (last ? 1 : 0);
-  const long long cta = blockIdx.x, grid = gridDim.x;
-  const long long count = ntiles > cta ? (ntiles - 1 - cta) / grid + 1 : 0;
+  const int lag = lag_for(nb);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   uint8_t* stages = smem + BAR_BYTES;
 
@@ -107,34 +127,49 @@ dbuf_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, long lon
   asm volatile("fence.mbarrier_init.release.cluster;" : : : "memory");
   asm volatile("fence.proxy.async.shared::cta;" : : : "memory");
 
-  auto in_copy = [&](long long i) {
-    const long long t = cta + i * grid;
-    const int slot = static_cast<int>(i % nb);
+  long long tile_of[MAX_BUFFERS];  // the tile each stage holds
+  long long loaded = 0;            // inbound copies started
+  bool more = true;
+  // claim the next tile and start its inbound copy, into the stage of copy
+  // number `loaded`; false when the tiles have run out
+  auto in_copy = [&]() {
+    const long long t = static_cast<long long>(atomicAdd(counter, 1ull));
+    if (t >= ntiles) return false;
+    const int slot = static_cast<int>(loaded++ % nb);
     const uint32_t bytes = t < full ? TILE_BYTES : last;
     const uint32_t bar = smem_addr(&bars[slot]);
+    tile_of[slot] = t;
     bar_expect_tx(bar, bytes);
     bulk_load(smem_addr(stages + slot * TILE_BYTES), src + t * TILE_BYTES, bytes, bar);
+    return true;
   };
 
-  const long long ahead = nb - 1 < count ? nb - 1 : count;
-  for (long long k = 0; k < ahead; ++k) in_copy(k);
-  for (long long i = 0; i < count; ++i) {
-    const long long nxt = i + nb - 1;
-    if (nxt < count) {
-      // the stage of tile nxt last held tile i - 1: drain it first
-      if (i >= 1) asm volatile("cp.async.bulk.wait_group.read 0;" : : : "memory");
-      in_copy(nxt);
-    }
-    const long long t = cta + i * grid;
+  // every stage starts full; step i stores the i-th tile, then refills the
+  // stage of tile i - lag, drained once at most `lag` newer stores still
+  // read shared memory
+  for (int k = 0; k < nb && more; ++k) more = in_copy();
+  for (long long i = 0; i < loaded; ++i) {
     const int slot = static_cast<int>(i % nb);
+    const long long t = tile_of[slot];
     bar_wait(smem_addr(&bars[slot]), static_cast<uint32_t>((i / nb) & 1));
     bulk_store(dst + t * TILE_BYTES, smem_addr(stages + slot * TILE_BYTES),
                t < full ? TILE_BYTES : last);
+    if (more && i >= lag) {
+      drain_all_but(lag);
+      more = in_copy();
+    }
   }
   asm volatile("cp.async.bulk.wait_group 0;" : : : "memory");
 
-  if (cta == 0)
+  if (blockIdx.x == 0)
     for (long long b = full * TILE_BYTES + last; b < nbytes; ++b) dst[b] = src[b];
+  // the last CTA to finish sets the counter back to 0 for the next launch
+  __threadfence();
+  if (atomicAdd(counter + 1, 1ull) == gridDim.x - 1ull) {
+    counter[0] = 0;
+    counter[1] = 0;
+    __threadfence();
+  }
 }
 
 }  // namespace
@@ -142,23 +177,34 @@ dbuf_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, long lon
 extern "C" {
 
 // Copy nbytes from src to dst (both on the card, 16-byte aligned, not
-// overlapping) through num_buffers shared-memory stages per CTA, with at
-// most num_sms CTAs. Returns cudaGetLastError() after the launch (0 on
-// success); the launch is asynchronous on `stream`.
+// overlapping) through `num_buffers` stages of TILE_BYTES in each of at most
+// `num_sms` CTAs, one pipeline a CTA, whose tiles are claimed one by one from
+// `counter` (two zeroed 8-byte words on the card, zero again after the
+// launch). One launch; returns cudaGetLastError() after it (0 on success),
+// asynchronous on `stream`.
 int repro_dbuf_copy(const void* src, void* dst, long long nbytes, int num_buffers, int num_sms,
-                    void* stream) {
+                    void* counter, void* stream) {
   if (nbytes < 0 || num_sms <= 0 || num_buffers < 1 || num_buffers > MAX_BUFFERS ||
-      reinterpret_cast<uintptr_t>(src) % 16 || reinterpret_cast<uintptr_t>(dst) % 16)
+      counter == nullptr || reinterpret_cast<uintptr_t>(src) % 16 ||
+      reinterpret_cast<uintptr_t>(dst) % 16)
     return (int)cudaErrorInvalidValue;
   if (nbytes == 0) return (int)cudaSuccess;
   const long long ntiles = (nbytes + TILE_BYTES - 1) / TILE_BYTES;
-  const int ctas = static_cast<int>(ntiles < num_sms ? ntiles : num_sms);
-  const int smem = BAR_BYTES + num_buffers * TILE_BYTES;
-  cudaError_t err =
-      cudaFuncSetAttribute(dbuf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int grid = static_cast<int>(ntiles < num_sms ? ntiles : num_sms);
+  static unsigned set_on = 0;       // devices the shared-memory attribute is set on
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  dbuf_kernel<<<ctas, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), nbytes, num_buffers);
+  if (!(set_on >> dev & 1u)) {
+    err = cudaFuncSetAttribute(dbuf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               BAR_BYTES + MAX_BUFFERS * TILE_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    set_on |= 1u << dev;
+  }
+  const int smem = BAR_BYTES + num_buffers * TILE_BYTES;
+  dbuf_kernel<<<grid, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), nbytes, num_buffers,
+      static_cast<unsigned long long*>(counter));
   return (int)cudaGetLastError();
 }
 

@@ -11,12 +11,24 @@
 // the least time is 2 * bytes / 3.35 TB/s: 0.641 ms for 1 GiB. There are no
 // operations to speak of.
 //
-// What this simple design does about that bound: many CTAs (8 per SM, 256
-// threads each) stream the array in a grid-stride loop with 16-byte vector
-// loads and stores, four independent ones in flight per thread before the
-// stores, so that enough bytes are in flight to cover the memory latency
-// (Little's law). When either pointer is not 16-byte aligned, or for the
-// last bytes of a size that is not a multiple of 16, it copies single bytes.
+// Design. The threads issue the loads and stores themselves (the paper's
+// knobs are #CTAs x CTA size x ILP, the 16-byte loads a thread has in flight
+// before its stores). Each CTA of 256 threads copies one contiguous 8 KB
+// batch: two 16-byte loads a thread, one per half of the batch, then the two
+// stores. The grid has as many CTAs as the array has batches, so the card's
+// block scheduler hands batches out as SMs free up and an SM that the memory
+// system serves faster copies more of them. Persistent grids that give each
+// SM a fixed share, the previous design (8 CTAs of 256 threads an SM in a
+// grid-stride loop of four loads) among them, end with the slowest share
+// and ran 5-8% longer than torch's copy_ on an H100 SXM; cache hints on the
+// loads or stores gained nothing (copy_sweep.py at the repository root,
+// whose designs are in copy_variants.cu; PERF.md). The array's last batch is
+// predicated, so the ragged end needs no loop of its own.
+//
+// One launch a call. When either pointer is not 16-byte aligned, that launch
+// is a kernel that copies single bytes: a path only kept right, never timed.
+// Otherwise the first nbytes % 16 threads of the grid also copy the last
+// bytes, one each.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -26,51 +38,67 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int CTAS_PER_SM = 8;
-constexpr int UNROLL = 4;
+constexpr int ILP = 2;
+constexpr size_t BATCH = static_cast<size_t>(THREADS) * ILP;   // 16-byte vectors
 
 __global__ void __launch_bounds__(THREADS)
-memcpy_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, size_t nbytes,
-              int vector) {
-  const size_t tid = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t nthreads = static_cast<size_t>(gridDim.x) * blockDim.x;
-  size_t done = 0;
-  if (vector) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    const size_t n16 = nbytes / 16;
-    size_t i = tid;
-    for (; i + (UNROLL - 1) * nthreads < n16; i += UNROLL * nthreads) {
-      uint4 v[UNROLL];
+memcpy_kernel(const uint8_t* __restrict__ bytes_in, uint8_t* __restrict__ bytes_out,
+              size_t nbytes) {
+  const auto* src = reinterpret_cast<const uint4*>(bytes_in);
+  auto* dst = reinterpret_cast<uint4*>(bytes_out);
+  const size_t n16 = nbytes / 16;
+  const size_t tid = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (tid < nbytes % 16) bytes_out[n16 * 16 + tid] = bytes_in[n16 * 16 + tid];
+  const size_t first = blockIdx.x * BATCH + threadIdx.x;
+  uint4 v[ILP];
+  if ((blockIdx.x + 1) * BATCH <= n16) {
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) v[u] = s[i + u * nthreads];
+    for (int u = 0; u < ILP; ++u) v[u] = src[first + u * THREADS];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) d[i + u * nthreads] = v[u];
-    }
-    for (; i < n16; i += nthreads) d[i] = s[i];
-    done = n16 * 16;
+    for (int u = 0; u < ILP; ++u) dst[first + u * THREADS] = v[u];
+  } else {  // the array's last batch
+#pragma unroll
+    for (int u = 0; u < ILP; ++u)
+      if (first + u * THREADS < n16) v[u] = src[first + u * THREADS];
+#pragma unroll
+    for (int u = 0; u < ILP; ++u)
+      if (first + u * THREADS < n16) dst[first + u * THREADS] = v[u];
   }
-  for (size_t b = done + tid; b < nbytes; b += nthreads) dst[b] = src[b];
+}
+
+// Any alignment: one byte a thread per grid-stride step.
+__global__ void memcpy_bytes(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
+                             size_t nbytes) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t b = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; b < nbytes;
+       b += stride)
+    dst[b] = src[b];
 }
 
 }  // namespace
 
 extern "C" {
 
-// Copy nbytes from src to dst (both on the card, not overlapping) with
-// `num_sms` x 8 CTAs at most. Returns cudaGetLastError() after the launch
-// (0 on success); the launch is asynchronous on `stream`.
-int repro_memcpy(const void* src, void* dst, long long nbytes, int num_sms, void* stream) {
-  if (nbytes < 0 || num_sms <= 0) return (int)cudaErrorInvalidValue;
+// Copy nbytes from src to dst (both on the card, not overlapping). One
+// launch; returns cudaGetLastError() after it (0 on success). The launch is
+// asynchronous on `stream`.
+int repro_memcpy(const void* src, void* dst, long long nbytes, void* stream) {
+  if (nbytes < 0) return (int)cudaErrorInvalidValue;
   if (nbytes == 0) return (int)cudaSuccess;
-  const int vector = (reinterpret_cast<uintptr_t>(src) % 16 == 0) &&
-                     (reinterpret_cast<uintptr_t>(dst) % 16 == 0);
-  const long long per_cta = static_cast<long long>(THREADS) * UNROLL * (vector ? 16 : 1);
-  const long long need = (nbytes + per_cta - 1) / per_cta;
-  const int ctas = static_cast<int>(need < num_sms * CTAS_PER_SM ? need : num_sms * CTAS_PER_SM);
-  memcpy_kernel<<<ctas, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst),
-      static_cast<size_t>(nbytes), vector);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto n = static_cast<size_t>(nbytes);
+  const auto in = static_cast<const uint8_t*>(src);
+  const auto out = static_cast<uint8_t*>(dst);
+  if (reinterpret_cast<uintptr_t>(src) % 16 || reinterpret_cast<uintptr_t>(dst) % 16) {
+    const size_t need = (n + THREADS - 1) / THREADS;
+    memcpy_bytes<<<static_cast<unsigned>(need < 1024 * 1024 ? need : 1024 * 1024), THREADS, 0,
+                   s>>>(in, out, n);
+  } else {
+    // at least one CTA, whose first threads copy the last n % 16 bytes
+    const size_t batches = (n / 16 + BATCH - 1) / BATCH;
+    memcpy_kernel<<<static_cast<unsigned>(batches < 1 ? 1 : batches), THREADS, 0, s>>>(in, out,
+                                                                                     n);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -3,10 +3,11 @@ Pallas TPU kernel ``repro/kernels/dbuf_copy.py::_dbuf_kernel`` (paper
 §5.1, Fig 12).
 
 The kernel is CUDA C++ in ``csrc/dbuf_copy.cu``: TMA bulk copies through
-``num_buffers`` shared-memory stages per CTA, with the Pallas schedule
-(its note gives the bound and the design). ``num_buffers`` is the depth
-in flight. The wrapper keeps the Pallas ``block_rows`` contract and
-dispatches by the tensor's device: CPU tensors take
+``num_buffers`` shared-memory stages of 24 KB, one pipeline on each SM,
+whose tiles are claimed one at a time from a counter that this wrapper
+keeps (its note gives the bound and the design). ``num_buffers`` is the
+depth in flight on each SM. The wrapper keeps the Pallas ``block_rows``
+contract and dispatches by the tensor's device: CPU tensors take
 :func:`dbuf_copy_plain`; CUDA tensors launch the kernel or raise.
 """
 
@@ -23,6 +24,11 @@ from repro_torch.kernels import _build
 launches = 0
 
 _lib: ctypes.CDLL | None = None
+#: the kernel's tile counters, one per (device, stream): zeroed once here,
+#: each launch claims its tiles from it and leaves it at zero
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+#: each device's SM count, read once (one pipeline an SM)
+_sms: dict[int, int] = {}
 
 
 def _library() -> ctypes.CDLL:
@@ -31,7 +37,8 @@ def _library() -> ctypes.CDLL:
         lib = _build.library("dbuf_copy")
         lib.repro_dbuf_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                         ctypes.c_longlong, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_void_p]
+                                        ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_void_p]
         lib.repro_dbuf_copy.restype = ctypes.c_int
         for fn in ("repro_dbuf_max_buffers", "repro_dbuf_tile_bytes"):
             getattr(lib, fn).argtypes = []
@@ -76,7 +83,7 @@ def dbuf_copy_plain(x: torch.Tensor, *, block_rows: int = 256,
 def dbuf_copy(x: torch.Tensor, *, block_rows: int = 256,
               num_buffers: int = 2) -> torch.Tensor:
     """Copy (rows, cols) through `num_buffers` stages; ``block_rows`` must
-    divide ``rows``. The CUDA kernel's stages are its own 16 KB tiles."""
+    divide ``rows``. The CUDA kernel's stages are its own 24 KB tiles."""
     global launches
     _check_blocks(x, block_rows)
     if num_buffers < 1:
@@ -97,10 +104,19 @@ def dbuf_copy(x: torch.Tensor, *, block_rows: int = 256,
         raise ValueError("dbuf_copy's bulk copies need a 16-byte aligned "
                          "array")
     out = torch.empty_like(x)
+    index = x.device.index
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    counter = _counters.get(key)
+    if counter is None:
+        counter = _counters[key] = torch.zeros(2, dtype=torch.int64,
+                                               device=x.device)
+    sms = _sms.get(index)
+    if sms is None:
+        sms = _sms[index] = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
     err = _build.launch(
         lib.repro_dbuf_copy, x.device, x.data_ptr(), out.data_ptr(),
-        x.numel() * x.element_size(), num_buffers,
-        torch.cuda.get_device_properties(x.device).multi_processor_count)
+        x.numel() * x.element_size(), num_buffers, sms, counter.data_ptr())
     _build.check(lib, err, "dbuf_copy")
     launches += 1
     return out

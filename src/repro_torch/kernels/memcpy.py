@@ -29,8 +29,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.library("memcpy")
         lib.repro_memcpy.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_void_p]
+                                     ctypes.c_longlong, ctypes.c_void_p]
         lib.repro_memcpy.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -61,10 +60,8 @@ def memcpy(x: torch.Tensor, *, block_rows: int = 256) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     lib = _library()
-    err = _build.launch(
-        lib.repro_memcpy, x.device, x.data_ptr(), out.data_ptr(),
-        x.numel() * x.element_size(),
-        torch.cuda.get_device_properties(x.device).multi_processor_count)
+    err = _build.launch(lib.repro_memcpy, x.device, x.data_ptr(),
+                        out.data_ptr(), x.numel() * x.element_size())
     _build.check(lib, err, "memcpy")
     launches += 1
     return out

@@ -14,7 +14,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "copy_sweep.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -42,7 +42,8 @@ def test_guard_sees_the_whole_port():
             "memcpy.py", "dbuf_copy.py", "strided.py", "rmsnorm.py",
             "classic.py", "trace.py", "cachesim.py", "devices.py",
             "bankconflict.py", "littles_law.py", "costmodel.py",
-            "profile.py", "store.py", "paging.py", "chip_smoke.py"} <= names
+            "profile.py", "store.py", "paging.py", "chip_smoke.py",
+            "copy_sweep.py"} <= names
 
 
 def test_kernel_entry_points_import_lazily():

@@ -11,6 +11,8 @@ skip without one.
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -308,6 +310,66 @@ def test_dbuf_copy_bad_block_raises_like_jax():
         dbuf.dbuf_copy(torch.ones((64, 8)), block_rows=64, num_buffers=0)
 
 
+def test_memcpy_unaligned_view_matches_jax():
+    """An int8 view that starts one byte into its storage, of a size that
+    is no multiple of 16: the card takes its byte path here."""
+    a = np.random.default_rng(7).integers(-128, 128, 333 * 77 + 1
+                                          ).astype(np.int8)
+    x = torch.from_numpy(a)[1:].view(333, 77)
+    want = jops.memcpy(jnp.asarray(a[1:].reshape(333, 77)), block_rows=111,
+                       interpret=True)
+    np.testing.assert_array_equal(ops.memcpy(x, block_rows=111).numpy(),
+                                  np.asarray(want))
+
+
+@pytest.mark.parametrize("num_buffers", range(1, 10))
+def test_dbuf_copy_ragged_int8_matches_jax(num_buffers):
+    """Rows of 4099 bytes: on the card a partial last tile and a 3-byte
+    tail."""
+    a = np.random.default_rng(num_buffers).integers(-128, 128, (6, 4099)
+                                                    ).astype(np.int8)
+    want = jdbuf_copy(jnp.asarray(a), block_rows=2, num_buffers=num_buffers)
+    got = dbuf.dbuf_copy(torch.from_numpy(a), block_rows=2,
+                         num_buffers=num_buffers)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_copy_sweep_lists_only_designs_the_kernels_take():
+    """copy_variants.cu's entries refuse (cudaErrorInvalidValue) a design
+    outside these limits: threads a multiple of 32 up to 512, ILP 1-16 in
+    powers of two, one side's cache hint at a time; a tile a multiple of
+    128, at most 16 stages within a CTA's shared memory, a lag below the
+    depth and at most 8. Each design is listed once, the launched ones
+    among them. Without a card the sweep exits, as every entry point
+    does."""
+    spec = importlib.util.spec_from_file_location(
+        "copy_sweep", Path(__file__).resolve().parents[1] / "copy_sweep.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    for designs in (list(cs.memcpy_designs()), list(cs.dbuf_designs())):
+        assert len(designs) == len({tuple(d.values()) for d in designs})
+    memcpy_designs = list(cs.memcpy_designs())
+    for d in memcpy_designs:
+        assert d["threads"] % 32 == 0 and 32 <= d["threads"] <= 512
+        assert d["ilp"] in (1, 2, 4, 8, 16) and d["span"] in (0, 1, 2)
+        assert d["load_hint"] in range(4) and d["store_hint"] in range(4)
+        assert d["load_hint"] == 0 or d["store_hint"] == 0
+    assert dict(ctas_per_sm=0, threads=256, ilp=2, span=1, load_hint=0,
+                store_hint=0) in memcpy_designs
+    dbuf_designs = list(cs.dbuf_designs())
+    for d in dbuf_designs:
+        assert d["tile_bytes"] % 128 == 0 and 1 <= d["num_buffers"] <= 16
+        assert 128 + d["num_buffers"] * d["tile_bytes"] <= 232448
+        assert 0 <= d["lag"] < d["num_buffers"] and d["lag"] <= 8
+        assert d["tiles"] in (0, 1, 2) and d["hint"] in (0, 1)
+    for nb in cs.DBUF_DEPTHS:
+        assert dict(num_buffers=nb, tile_bytes=cs.DBUF_TILE,
+                    lag=cs.launched_lag(nb), tiles=2, hint=0) in dbuf_designs
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA"):
+            cs.main(["--designs"])
+
+
 # -- strided gather --------------------------------------------------------------
 
 
@@ -405,6 +467,55 @@ def test_copies_match_plain_on_card(dtype):
         mc.memcpy(torch.ones((100, 128), device="cuda"), block_rows=64)
     with pytest.raises(ValueError, match="!= 0"):
         dbuf.dbuf_copy(torch.ones((100, 128), device="cuda"), block_rows=64)
+
+
+def _int8_on_card(n, seed, offset=0):
+    """n random int8 bytes on the card, starting ``offset`` bytes into a
+    fresh (512-byte aligned) allocation."""
+    a = np.random.default_rng(seed).integers(-128, 128, n + offset)
+    return torch.from_numpy(a.astype(np.int8)).cuda()[offset:]
+
+
+@pytest.mark.gpu
+def test_memcpy_unaligned_and_ragged_on_card():
+    """The byte path (a start one byte past 16-byte alignment, a size that
+    is no multiple of 16) and, aligned, a last batch cut short with a 7-byte
+    tail: each one launch, exact."""
+    _card()
+    unaligned = _int8_on_card(333 * 77, 7, offset=1).view(333, 77)
+    ragged = _int8_on_card(1021 * 1027, 8).view(1021, 1027)
+    assert unaligned.data_ptr() % 16 and unaligned.numel() % 16
+    assert ragged.data_ptr() % 16 == 0 and ragged.numel() % 16 == 7
+    for x, block in ((unaligned, 111), (ragged, 1021)):
+        before = mc.launches
+        got = mc.memcpy(x, block_rows=block)
+        assert mc.launches == before + 1
+        assert torch.equal(got, mc.memcpy_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_buffers", range(1, 10))
+def test_dbuf_copy_partial_tile_and_tail_on_card(num_buffers):
+    """Sizes that end in a partial tile of 80 bytes and a 13-byte tail, over
+    fewer tiles than CTAs and over more."""
+    _card()
+    tile = dbuf._library().repro_dbuf_tile_bytes()
+    for tiles in (3, 301):
+        n = tiles * tile + 5 * 16 + 13
+        x = _int8_on_card(n, tiles).view(1, n)
+        before = dbuf.launches
+        got = dbuf.dbuf_copy(x, block_rows=1, num_buffers=num_buffers)
+        assert dbuf.launches == before + 1
+        assert torch.equal(got, dbuf.dbuf_copy_plain(
+            x, block_rows=1, num_buffers=num_buffers))
+
+
+@pytest.mark.gpu
+def test_dbuf_copy_rejects_an_unaligned_start_on_card():
+    _card()
+    x = _int8_on_card(64 * 64, 9, offset=1).view(64, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dbuf.dbuf_copy(x, block_rows=64)
 
 
 @pytest.mark.gpu

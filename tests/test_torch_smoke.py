@@ -76,3 +76,14 @@ def test_conflict_degree_of_the_probe(n, w, stride, ways):
     meet gcd(s, 32) to a bank while 32 rows stay distinct; at 128 rows
     they repeat, and 4 is the most."""
     assert smoke().conflict_degree(n, w, stride) == ways
+
+
+def test_device_turns_split_the_kernel_from_its_library_call_in_order():
+    """A trace of kernel, copy_, copy_, kernel: each call's device ms in
+    the order the calls ran, whatever order the trace lists them in."""
+    k = "(anonymous namespace)::memcpy_kernel(const unsigned char*, ...)"
+    lib = "Memcpy DtoD (Device -> Device)"
+    dev = [_kernel(k, 4, 40, 740), _kernel(lib, 2, 10, 710),
+           _kernel(k, 1, 0, 750), _kernel(lib, 3, 20, 720)]
+    assert smoke().device_turns(dev, "memcpy_kernel") == {
+        "kernel": [0.75, 0.74], "library": [0.71, 0.72]}
