@@ -10,7 +10,7 @@ prints one JSON record on a line of its own; any failure raises and exits
 non-zero. Phases:
 
   device   the card's name and power limit (nvidia-smi) and torch's name
-  build    all six kernels, one nvcc each, started together; ptxas
+  build    all seven kernels, one nvcc each, started together; ptxas
            registers, shared memory and spills; the HGMMA instructions in
            the bf16 flash kernels' SASS (cuobjdump), which must be there
   check    the flash kernel against its plain PyTorch version on the card,
@@ -34,8 +34,9 @@ non-zero. Phases:
            at every stride 1-257 of its timed shapes) and at the copies'
            edges (memcpy from an unaligned start and with a short last
            batch; dbuf_copy ending in a partial tile and a 13-byte tail at
-           every depth), and each ValueError on CUDA tensors (divisibility,
-           depth, dbuf_copy's unaligned start)
+           every depth, and from starts 1, 3 and 15 bytes past 16-byte
+           alignment at every depth), and each ValueError on CUDA tensors
+           (divisibility, depth)
   times    the same kernels' ms beside plain, library and bound ms; memcpy
            and dbuf_copy in turns with copy_ (kernel, copy_, copy_,
            kernel, five times), every turn recorded beside the medians,
@@ -47,6 +48,21 @@ non-zero. Phases:
            dbuf_copy depth curve beside copy_ and the strided probe's
            stride curve at (128, 256) and (1024, 32) float32, device time
            beside the bank conflict degree its addresses give
+  dissect  the batched cache engine's scan kernel against its plain
+           version (16 lanes of every registered simulated cache, 4,096
+           accesses each) and the numpy Cache (2^16 accesses a lane, the
+           LRU lanes), and its ValueError for a lane too wide for shared
+           memory; then the dissection path, counted: dissect_device of
+           GTX560Ti, GTX780, GTX980 and TeslaV100 with the torch engine on
+           the card and with the vector engine, each diffed against the
+           committed experiments/profiles with no failing row, and the
+           torch backend's traces that take the scan (a stride that does
+           not tile, a custom index stream, run and run.batch) against the
+           vector engine's; the torch engine's speedup over the vector
+           engine on GTX980's structures (best of 2, trace cache off, gated
+           at 10x); the kernel's times at 16 x 2^16 accesses beside its
+           plain version's (at 16 x 4,096, scaled), its bytes bound and its
+           latency bound (one L1 round trip an access, from P-chase stamps)
   serving  full-width granite-8b (36 layers, random bf16 weights from a
            seed) through the launcher's fixed-batch loop and its dense
            engine; every prefill must launch the flash kernel once per
@@ -86,6 +102,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 on the tensor cores
+CUDA_CORE_OP_PER_S = 67e12       # float32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:95
 #: flash vs "ref" prefill logits of full-depth granite-8b, both run in
 #: float32 on the same weights (bf16 -> f32 is exact): relative RMS
@@ -124,7 +141,7 @@ SETTLING_SPIN_CYCLES = 1 << 17
 #: lengths. The allclose at TOL alone lets such a fault pass at S 2048.
 FLASH_TILE_REL_RMS_TOL = 1e-2
 KERNELS = ["flash_attention", "pchase", "memcpy", "dbuf_copy", "strided",
-           "rmsnorm"]
+           "rmsnorm", "batch_cache"]
 GIB = 1 << 30
 
 
@@ -827,6 +844,21 @@ def measurement(torch, dev, card: str) -> list[dict]:
                   dbuf.dbuf_copy_plain(y, block_rows=1, num_buffers=nb),
                   dtype="torch.int8", shape=[1, n], num_buffers=nb,
                   full_tiles=tiles, last_tile_bytes=80, tail_bytes=13)
+    # dbuf_copy from a start 1, 3 and 15 bytes past 16-byte alignment (its
+    # shifted stores), over 3 tiles and a ragged 80 + 13 bytes, at every depth
+    n = 3 * tile + 5 * 16 + 13
+    for offset in (1, 3, 15):
+        y = randn((n + offset,), torch.int8)[offset:].view(1, n)
+        for nb in range(1, dbuf._library().repro_dbuf_max_buffers() + 1):
+            before = dbuf.launches
+            got = dbuf.dbuf_copy(y, block_rows=1, num_buffers=nb)
+            check(dbuf.launches == before + 1,
+                  "an unaligned dbuf_copy took more than one launch")
+            exact("dbuf_copy", got,
+                  dbuf.dbuf_copy_plain(y, block_rows=1, num_buffers=nb),
+                  dtype="torch.int8", shape=[1, n], num_buffers=nb,
+                  start_mod_16=y.data_ptr() % 16, full_tiles=3,
+                  last_tile_bytes=93)
     # the timed (128, 256) and its smaller row counts, and the (1024, 32)
     # of the measure phase's second stride curve; the times and the curves
     # run on the values checked here
@@ -859,8 +891,6 @@ def measurement(torch, dev, card: str) -> list[dict]:
             lambda: dbuf.dbuf_copy(x1g, num_buffers=0)),
         "dbuf_copy num_buffers above shared memory": raises(
             lambda: dbuf.dbuf_copy(x1g, num_buffers=64)),
-        "dbuf_copy unaligned start": raises(
-            lambda: dbuf.dbuf_copy(unaligned, block_rows=111)),
         "strided above one CTA's shared memory": raises(
             lambda: st.strided_gather(torch.ones((1024, 1024), device=dev),
                                       stride=3)),
@@ -1032,6 +1062,222 @@ def measurement(torch, dev, card: str) -> list[dict]:
              "card": card} for name in mods]
 
 
+#: lanes of the scan's check and time (inference._WAVE, one wave of probes)
+SCAN_LANES = 16
+#: accesses a lane in the scan's check against the numpy oracle and its time
+SCAN_STEPS = 1 << 16
+#: accesses a lane in the check against the plain version, whose step loop
+#: launches some 30 PyTorch operations an access
+SCAN_PLAIN_STEPS = 4096
+#: the GPUs the dissection phase dissects, and the batched engine's least
+#: speedup over the vector engine (benchmarks/profile_roundtrip.py:109)
+DISSECT_GPUS = ("GTX560Ti", "GTX780", "GTX980", "TeslaV100")
+MIN_BATCHED_SPEEDUP = 10.0
+
+
+def scan_streams(np, geoms, seed: int) -> list:
+    """Two lanes a geometry, SCAN_STEPS accesses each, at the probes' own
+    sizes: a chase at 1.5x the structure's capacity, 2 passes with its line
+    stride then 2 with a stride that does not tile (the simulator backends'
+    np.resize stream), repeated; and a seeded random stream over 4x."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in geoms:
+        c, b = g.size_bytes, g.line_bytes
+        n = 3 * c // 2
+        odd = 7 * b if n % (7 * b) else 5 * b
+        tiled = np.resize((np.arange(-(-n // b), dtype=np.int64) * b) % n,
+                          2 * -(-n // b))
+        ragged = np.resize((np.arange(-(-n // odd), dtype=np.int64) * odd)
+                           % n, 2 * -(-n // odd))
+        out.append(np.resize(np.concatenate([tiled, ragged]), SCAN_STEPS))
+        out.append(rng.integers(0, 4 * c // b, SCAN_STEPS).astype(np.int64)
+                   * b)
+    return out
+
+
+def dissect_phase(torch, dev, card: str) -> dict:
+    """The dissection half of the main path on the card: the batched
+    engine's scan kernel against its plain version and the numpy oracle,
+    then the main path with the launch count set to 0 just before it (the
+    four GPUs dissected through the torch engine, and the torch backend's
+    traces that take the scan), the twin of profile_roundtrip's batched
+    speedup, and the kernel's times. Returns the kernel's record."""
+    import numpy as np
+
+    from repro_torch.core import cachesim, devices, tracecache
+    from repro_torch.core.cachesim_torch import BatchCache
+    from repro_torch.core.trace import PChaseConfig
+    from repro_torch.kernels import batch_cache as bc
+    from repro_torch.kernels import pchase as pc
+    from repro_torch.kernels import ref
+    from repro_torch.profile import diffing, pipeline, store
+
+    # -- check: the scan kernel, exactly ---------------------------------------
+    names = sorted(devices.SIM_CACHES)
+    geoms = [devices.SIM_CACHES[n]().geom for n in names]
+    lane_geoms = [g for g in geoms for _ in range(2)]
+    check(len(lane_geoms) == SCAN_LANES, f"{len(lane_geoms)} scan lanes")
+    streams = scan_streams(np, geoms, seed=3)
+    sim = BatchCache(lane_geoms, device=dev)
+    full = sim.scan_inputs(list(enumerate(streams)))
+    # the first SCAN_PLAIN_STEPS accesses of the same inputs, uniforms too
+    short = {k: v[:, :SCAN_PLAIN_STEPS].contiguous()
+             if k in ("sets", "lines", "valid", "u") else v
+             for k, v in full.items()}
+    hits = bc.batch_cache_scan(**full)
+    short_hits = bc.batch_cache_scan(**short)
+    want = ref.batch_cache_ref(**short)
+    torch.cuda.synchronize()
+    ok = torch.equal(short_hits, want) and torch.equal(
+        hits[:, :SCAN_PLAIN_STEPS], short_hits)
+    record("check", kernel="batch_cache", against="plain",
+           lanes=SCAN_LANES, steps=SCAN_PLAIN_STEPS, exact=ok,
+           geometries=names)
+    check(ok, "batch_cache disagrees with its plain version")
+    host = hits.cpu().numpy()
+    oracle = {}
+    for i, (g, addrs) in enumerate(zip(lane_geoms, streams)):
+        if g.replacement.kind not in ("lru", "fifo"):
+            continue
+        c = cachesim.Cache(g)
+        want_i = np.fromiter((c.access(int(a)) for a in addrs), dtype=bool,
+                             count=len(addrs))
+        oracle[f"{g.name}/{'chase' if i % 2 == 0 else 'random'}"] = {
+            "exact": bool(np.array_equal(host[i], want_i)),
+            "hit_rate": float(want_i.mean())}
+    record("check", kernel="batch_cache", against="numpy Cache",
+           steps=SCAN_STEPS, lanes=oracle)
+    check(all(v["exact"] for v in oracle.values()),
+          f"batch_cache disagrees with the numpy Cache: {oracle}")
+    wide = BatchCache(cachesim.CacheGeometry("wide", 32, (1024,) * 64),
+                      device=dev)
+    try:
+        wide.simulate([np.arange(64, dtype=np.int64) * 32], force_scan=True)
+        raised = False
+    except ValueError:
+        raised = True
+    record("check", kernel="batch_cache", value_error_too_wide=raised)
+    check(raised, "a lane of 64 x 1024 ways did not raise ValueError")
+
+    # -- dissect: the main path, counted ----------------------------------------
+    bc.launches = 0
+    profiles, rows = {}, {}
+    for gpu in DISSECT_GPUS:
+        for engine in ("torch", "vector"):
+            prof = pipeline.dissect_device(gpu, engine=engine, device=dev)
+            committed = store.load_profile(gpu)
+            diff = diffing.diff_profiles(prof, committed)
+            bad = [r.field for r in diff if not r.ok]
+            profiles[(gpu, engine)] = prof
+            rows[(gpu, engine)] = len(diff)
+            record("dissect", gpu=gpu, engine=engine, device=str(dev),
+                   engine_version=prof.engine_version, rows=len(diff),
+                   failing_rows=bad, stale=prof.is_stale(),
+                   timings=prof.timings, card=card)
+            check(not bad, f"{gpu} ({engine}) diffs from the committed "
+                  f"profile in {bad}")
+            check(not prof.is_stale(), f"{gpu} ({engine}) is stale")
+        same = {k: v for k, v in profiles[(gpu, "torch")].to_json().items()
+                if k not in ("engine", "engine_version", "timings")}
+        check(same == {k: v for k, v in profiles[(gpu, "vector")].to_json()
+                       .items() if k in same},
+              f"{gpu}: the torch and vector engines' profiles differ")
+    profile_launches = bc.launches
+
+    # the probes the closed form does not take: a stride that does not tile
+    # the array and a custom index stream, through the torch backend of
+    # every lru/fifo structure, one at a time and as one batch, each trace
+    # against the vector engine's
+    traced = {}
+    for name, g in zip(names, geoms):
+        if g.replacement.kind not in ("lru", "fifo"):
+            continue
+        c, b = g.size_bytes, g.line_bytes
+        n = 3 * c // 2
+        odd = 7 * b if n % (7 * b) else 5 * b
+        run = devices.sim_cache_backend(name, engine="torch", device=dev)
+        vec = devices.sim_cache_backend(name, engine="vector")
+        cfg = PChaseConfig(n, odd, 2 * -(-n // odd), 4, 2)
+        custom = np.random.default_rng(len(name)).integers(
+            0, 2 * c // 4, 2048).astype(np.int64)
+        ccfg = PChaseConfig(4 * len(custom), 4, len(custom), 4, 0)
+        got = [run(cfg), run(ccfg, indices=custom)]
+        got += run.batch([(cfg, None), (ccfg, custom)])
+        want = [vec(cfg), vec(ccfg, indices=custom)] * 2
+        traced[name] = all(np.array_equal(x.latencies, y.latencies)
+                           and np.array_equal(x.indices, y.indices)
+                           for x, y in zip(got, want))
+    trace_launches = bc.launches - profile_launches
+    record("dissect", step="scan_probes", exact=traced,
+           launches=trace_launches, card=card)
+    check(all(traced.values()), f"torch backend traces differ: {traced}")
+    launches = bc.launches
+    record("dissect", step="launches", launches={
+        "batch_cache": launches, "dissect_device": profile_launches,
+        "scan_probes": trace_launches})
+    check(launches > 0, "the scan kernel never ran on the dissection path")
+
+    # -- the batched engine's speedup, as profile_roundtrip's gate ------------
+    with tracecache.disabled():
+        best = {}
+        for engine in ("vector", "torch", "vector", "torch"):
+            t0 = time.perf_counter()
+            pipeline.dissect_structures("GTX980", engine=engine, device=dev)
+            t = time.perf_counter() - t0
+            best[engine] = min(best.get(engine, t), t)
+    speedup = best["vector"] / best["torch"]
+    record("dissect", step="batched_engine_speedup", gpu="GTX980",
+           vector_s=best["vector"], torch_s=best["torch"], speedup=speedup,
+           gate=MIN_BATCHED_SPEEDUP, card=card)
+    check(speedup >= MIN_BATCHED_SPEEDUP,
+          f"torch engine {speedup:.1f}x the vector engine, below "
+          f"{MIN_BATCHED_SPEEDUP}x")
+
+    # -- times: kernel, plain (smaller, scaled) and the two bounds --------------
+    # a shared-memory round trip, from the card's own P-chase stamps at L1
+    # (16 KB at a 32-byte stride, the later of 16 passes)
+    l1 = pc.pchase_trace_cycles(pc.uniform_init(4096, 8, dev), 4088,
+                                iterations=16 * 512)
+    l1_cycles = l1.cycles[8 * 512:].double().median().item()
+    clock_hz = l1.elapsed_cycles / l1.elapsed_ns * 1e9
+    lanes_k = SCAN_LANES * SCAN_STEPS
+    nbytes = sum(t.numel() * t.element_size() for t in full.values()) + lanes_k
+    # this run's operations: an access compares its line with each way of
+    # its set and takes the least of their stamps, two integer operations
+    # a way, on the CUDA cores (at most their float32 rate)
+    ways_hit = full["ways"].gather(1, full["sets"].long())
+    ops = 2 * int((ways_hit * full["valid"]).sum())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / CUDA_CORE_OP_PER_S * 1e3
+    plain_ms = time_ms(torch, lambda: ref.batch_cache_ref(**short), 1,
+                       warmup=0)
+    t = dict(
+        ms=time_ms(torch, lambda: bc.batch_cache_scan(**full), 5, warmup=1),
+        **dict(zip(("device_ms", "device_trace"), device_ms(
+            torch, lambda: bc.batch_cache_scan(**full), 5,
+            "batch_cache_kernel"))),
+        plain_ms=plain_ms * SCAN_STEPS / SCAN_PLAIN_STEPS,
+        plain_ms_measured=plain_ms,
+        plain_shape=f"{SCAN_LANES} x {SCAN_PLAIN_STEPS} accesses, scaled "
+                    f"x{SCAN_STEPS // SCAN_PLAIN_STEPS} to {SCAN_STEPS}",
+        library_ms=None, library_device_ms=None,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_bytes=nbytes, bytes_bound_ms=bytes_ms, bound_operations=ops,
+        operations_bound_ms=ops_ms,
+        latency_bound_ms=SCAN_STEPS * l1_cycles / clock_hz * 1e3,
+        l1_round_trip_cycles=l1_cycles, sm_clock_mhz=clock_hz / 1e6,
+        shape=f"{SCAN_LANES} lanes x {SCAN_STEPS} accesses, every "
+              "registered geometry")
+    record("times", kernel="batch_cache", card=card, **t)
+    return {"name": "batch_cache", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/batch_cache.cu",
+            "replaces": "src/repro/core/cachesim_jax.py:293",
+            "launches": launches, "max_abs_err": 0.0, **t,
+            "batched_engine_speedup": speedup, "card": card}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py runs from the root of a checkout of the repo: "
@@ -1045,6 +1291,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import configs, resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.kernels import batch_cache as bc
     from repro_torch.kernels import dbuf_copy as dbuf
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import pchase as pc
@@ -1088,7 +1335,8 @@ def main() -> int:
            pchase_chunk=pclib.repro_pchase_chunk(),
            dbuf_tile_bytes=dblib.repro_dbuf_tile_bytes(),
            dbuf_max_buffers=dblib.repro_dbuf_max_buffers(),
-           strided_max_smem_bytes=st._library().repro_strided_max_smem())
+           strided_max_smem_bytes=st._library().repro_strided_max_smem(),
+           batch_cache_max_smem_bytes=bc._library().repro_batch_cache_max_smem())
     if "per_kernel" in flash_sass:
         hgmma = {k: v for k, v in flash_sass["per_kernel"].items()
                  if "flash_wgmma" in k}
@@ -1198,6 +1446,8 @@ def main() -> int:
     # large traces miss kernels
     rms_record = rmsnorm_phase(torch, dev, card)
     measured = measurement(torch, dev, card)
+    torch.cuda.empty_cache()
+    dissected = dissect_phase(torch, dev, card)
     torch.cuda.empty_cache()
 
     # -- serving: full-width granite-8b through the launcher -------------------
@@ -1354,7 +1604,7 @@ def main() -> int:
                          if (bh, sq) != (32, 256)},
         "card": card}]
     rms_record["launches"] = serving_rmsnorm_launches
-    kernels += [rms_record] + measured
+    kernels += [rms_record] + measured + [dissected]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -46,6 +46,12 @@ ENGINE_VERSION = "trace-engine/2"
 # served to (or taken from) the numpy engines.
 JAX_ENGINE_VERSION = "trace-engine-jax/1"
 
+# Version of the port's batched torch engine (core.cachesim_torch), kept
+# apart from both for the same reason: its stochastic lanes draw their
+# uniforms from a torch.Generator, so its traces are neither the numpy
+# engines' nor the jax engine's. Not part of registry_fingerprint().
+TORCH_ENGINE_VERSION = "trace-engine-torch/1"
+
 # ---------------------------------------------------------------------------
 # Set-mapping functions: line address (bytes) -> set index
 #

@@ -1,9 +1,7 @@
 """Calibrated device models.
 
 A copy of ``repro/core/devices.py`` for the port: numpy and the
-standard library only, nothing of ``repro``. ``sim_cache_backend`` is
-left out: the simulator backends it builds are not ported yet
-(ROADMAP.md, queue 1).
+standard library only, nothing of ``repro``.
 
 Two families live here:
 
@@ -406,3 +404,16 @@ SIM_CACHES = {
     "l2_tlb": l2_tlb,
     "volta_l2_tlb": volta_l2_tlb,
 }
+
+
+def sim_cache_backend(name: str, *, engine: str = "vector", **kw):
+    """Trace backend for a registered simulated cache, wired into the trace
+    cache under the structure's canonical name (the factories are
+    deterministic, which is what makes the trace_id valid)."""
+    from repro_torch.core.pchase import cache_backend   # local: keep layering flat
+    try:
+        factory = SIM_CACHES[name]
+    except KeyError:
+        raise KeyError(f"unknown simulated cache {name!r}; "
+                       f"registered: {sorted(SIM_CACHES)}") from None
+    return cache_backend(factory, engine=engine, trace_id=name, **kw)

@@ -36,7 +36,9 @@ import json
 import warnings
 from typing import Any
 
-from repro_torch.core.cachesim import ENGINE_VERSION, JAX_ENGINE_VERSION
+from repro_torch.core.cachesim import (
+    ENGINE_VERSION, JAX_ENGINE_VERSION, TORCH_ENGINE_VERSION,
+)
 from repro_torch.core import devices as _devices
 from repro_torch.core.devices import TPU_V5E, TpuSpec
 
@@ -225,12 +227,14 @@ class DeviceProfile:
 
         The expected engine version depends on which engine dissected the
         profile: numpy-engine profiles track ``ENGINE_VERSION``, batched
-        profiles ``JAX_ENGINE_VERSION``.  An unknown engine name is itself
+        profiles ``JAX_ENGINE_VERSION``, the port's torch-engine profiles
+        ``TORCH_ENGINE_VERSION``.  An unknown engine name is itself
         a staleness reason (fail closed)."""
         problems = []
         expected = {"vector": ENGINE_VERSION,
                     "reference": ENGINE_VERSION,
-                    "jax": JAX_ENGINE_VERSION}.get(self.engine)
+                    "jax": JAX_ENGINE_VERSION,
+                    "torch": TORCH_ENGINE_VERSION}.get(self.engine)
         if expected is None:
             problems.append(f"unknown dissection engine {self.engine!r}")
         elif self.engine_version != expected:

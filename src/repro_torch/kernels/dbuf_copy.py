@@ -5,7 +5,9 @@ Pallas TPU kernel ``repro/kernels/dbuf_copy.py::_dbuf_kernel`` (paper
 The kernel is CUDA C++ in ``csrc/dbuf_copy.cu``: TMA bulk copies through
 ``num_buffers`` shared-memory stages of 24 KB, one pipeline on each SM,
 whose tiles are claimed one at a time from a counter that this wrapper
-keeps (its note gives the bound and the design). ``num_buffers`` is the
+keeps (its note gives the bound and the design). Any start is copied: a
+source that is not 16-byte aligned is loaded by aligned spans and stored
+shifted, in the same one launch. ``num_buffers`` is the
 depth in flight on each SM. The wrapper keeps the Pallas ``block_rows``
 contract and dispatches by the tensor's device: CPU tensors take
 :func:`dbuf_copy_plain`; CUDA tensors launch the kernel or raise.
@@ -100,9 +102,8 @@ def dbuf_copy(x: torch.Tensor, *, block_rows: int = 256,
                          f"stages of {lib.repro_dbuf_tile_bytes()} bytes "
                          "that one CTA's shared memory holds")
     x = x.contiguous()
-    if x.data_ptr() % 16:
-        raise ValueError("dbuf_copy's bulk copies need a 16-byte aligned "
-                         "array")
+    # a fresh block, 16-byte aligned: a source that is not takes the
+    # kernel's shifted stores, in the same one launch
     out = torch.empty_like(x)
     index = x.device.index
     key = (index, torch._C._cuda_getCurrentRawStream(index))

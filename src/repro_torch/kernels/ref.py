@@ -85,3 +85,69 @@ def tile_rel_rms(got: torch.Tensor, want: torch.Tensor,
     ref = w.pow(2).sum((2, 3))
     return (diff / ref.clamp(min=torch.finfo(torch.float32).tiny)
             ).sqrt().max().item()
+
+
+#: the policy codes of the batched cache engine's lanes
+POLICY_CODE = {"lru": 0, "fifo": 1, "random": 2, "prob": 3}
+
+
+def batch_cache_ref(ways: torch.Tensor, policy: torch.Tensor,
+                    cum: torch.Tensor, sets: torch.Tensor,
+                    lines: torch.Tensor, valid: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+    """The batched cache engine's scan, one step a loop turn over all lanes
+    at once: the twin of ``repro/core/cachesim_jax.py::_lane_scan``.
+
+    ``ways (B, T)`` int32 way counts (0 past a lane's sets), ``policy (B,)``
+    int32 (:data:`POLICY_CODE`), ``cum (B, W)`` float32 cumulative way
+    weights of the prob lanes, ``sets`` and ``lines (B, K)`` int32 (dense
+    line ids), ``valid (B, K)`` bool, ``u (B, K)`` float32 eviction
+    uniforms. Every lane starts cold. Returns the hits ``(B, K)`` bool.
+    The prob victim is the first way whose cumulative weight reaches
+    ``u`` times the set's total, read from ``cum`` as given (the
+    reference takes a masked ``cumsum`` in the scan)."""
+    b, t = ways.shape
+    w = cum.shape[1]
+    k = sets.shape[1]
+    dev = ways.device
+    lane = torch.arange(b, device=dev)
+    wid = torch.arange(w, dtype=torch.int32, device=dev)[None]
+    tags = torch.full((b, t, w), -1, dtype=torch.int32, device=dev)
+    stamp = torch.zeros((b, t, w), dtype=torch.int32, device=dev)
+    filled = torch.zeros((b, t), dtype=torch.int32, device=dev)
+    clock = torch.ones(b, dtype=torch.int32, device=dev)
+    hits = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    int_max = torch.iinfo(torch.int32).max
+    lru, fifo = policy == 0, policy == 1
+    rand, prob = policy == 2, policy == 3
+    for step in range(k):
+        s, line = sets[:, step].long(), lines[:, step]
+        v, uu = valid[:, step], u[:, step]
+        row_t, row_s = tags[lane, s], stamp[lane, s]
+        wl, f = ways[lane, s], filled[lane, s]
+        wvalid = wid < wl[:, None]
+        eq = wvalid & (row_t == line[:, None])
+        hit = eq.any(dim=1)
+        ev_det = torch.argmin(torch.where(wvalid, row_s, int_max), dim=1)
+        ev_rand = torch.minimum((uu * wl).to(torch.int32),
+                                (wl - 1).clamp(min=0))
+        total = cum[lane, (wl - 1).clamp(min=0).long()]
+        ev_prob = torch.argmax((wvalid & (cum >= (uu * total)[:, None]))
+                               .to(torch.int32), dim=1)
+        evict = torch.where(rand, ev_rand,
+                            torch.where(prob, ev_prob.to(torch.int32),
+                                        ev_det.to(torch.int32)))
+        ins = torch.where(f < wl, f, evict)
+        way = torch.where(hit, torch.argmax(eq.to(torch.int32), dim=1)
+                          .to(torch.int32), ins)
+        do_ins = v & ~hit
+        sel = wid == way[:, None]
+        restamp = torch.where(lru, v, fifo & do_ins)
+        tags[lane, s] = torch.where(sel & do_ins[:, None], line[:, None],
+                                    row_t)
+        stamp[lane, s] = torch.where(sel & restamp[:, None], clock[:, None],
+                                     row_s)
+        filled[lane, s] = f + (do_ins & (f < wl)).to(torch.int32)
+        clock = clock + v.to(torch.int32)
+        hits[:, step] = hit & v
+    return hits

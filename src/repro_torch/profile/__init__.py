@@ -1,16 +1,25 @@
-"""Device profiles for the port: the ported part of ``repro.profile``.
+"""Device profiles for the port: a copy of ``repro.profile``.
 
-Only the artifact store is ported (:mod:`.store`: load, vet and install
-a committed ``repro.profile/v1`` artifact). The blind dissection
-pipeline and the diff table wait for the simulator backends (ROADMAP.md,
-queue 1). The :class:`~repro_torch.core.profile.DeviceProfile` dataclass
-lives in ``repro_torch.core.profile``, as in the JAX package.
+``pipeline.dissect_device`` runs the blind-recovery suite against a
+registered device (engine ``vector``, ``reference`` or the batched
+``torch`` engine on a named device); ``store`` loads, vets, installs,
+validates and, to a path the caller names, saves ``repro.profile/v1``
+artifacts; ``diffing`` renders the measured-vs-published verdict table.
+The :class:`~repro_torch.core.profile.DeviceProfile` dataclass lives in
+``repro_torch.core.profile``, as in the JAX package.
 """
 
 from repro_torch.core.profile import (      # noqa: F401  (re-exports)
     PROFILE_SCHEMA, CacheProfile, DeviceProfile, SpecMixWarning,
     registry_fingerprint, resolve_spec, set_default_profile, use_profile,
 )
+from repro_torch.profile.diffing import (   # noqa: F401
+    DiffRow, diff_profiles, render_diff,
+)
+from repro_torch.profile.pipeline import (  # noqa: F401
+    dissect_device, published_profile,
+)
 from repro_torch.profile.store import (     # noqa: F401
-    DEFAULT_ROOT, install_profile, load_profile, path_for,
+    DEFAULT_ROOT, install_profile, load_profile, path_for, save_profile,
+    validate_all, validate_file,
 )

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports jax or the JAX package, and importing the
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py``, ``copy_sweep.py`` nor ``examples/torch_dissect_memory.py``
+imports jax or the JAX package, and importing the
 kernels' entry points builds and loads nothing (the build is lazy, at
 first launch)."""
 
@@ -14,7 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "copy_sweep.py"]
+    ROOT / "chip_smoke.py", ROOT / "copy_sweep.py",
+    ROOT / "examples" / "torch_dissect_memory.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -43,7 +45,9 @@ def test_guard_sees_the_whole_port():
             "classic.py", "trace.py", "cachesim.py", "devices.py",
             "bankconflict.py", "littles_law.py", "costmodel.py",
             "profile.py", "store.py", "paging.py", "chip_smoke.py",
-            "copy_sweep.py"} <= names
+            "copy_sweep.py", "tracecache.py", "spectrum.py", "inference.py",
+            "diffing.py", "pipeline.py", "cachesim_torch.py",
+            "batch_cache.py", "torch_dissect_memory.py"} <= names
 
 
 def test_kernel_entry_points_import_lazily():
@@ -52,10 +56,11 @@ def test_kernel_entry_points_import_lazily():
         "import repro_torch.kernels.ops, repro_torch.launch.serve\n"
         "import repro_torch.core.pchase, repro_torch.core.classic\n"
         "import repro_torch.serve.engine, repro_torch.profile\n"
+        "import repro_torch.core.cachesim_torch, repro_torch.core.inference\n"
         "from repro_torch.kernels import _build, flash_attention, pchase, "
-        "memcpy, dbuf_copy, strided, rmsnorm\n"
+        "memcpy, dbuf_copy, strided, rmsnorm, batch_cache\n"
         "mods = (flash_attention, pchase, memcpy, dbuf_copy, strided, "
-        "rmsnorm)\n"
+        "rmsnorm, batch_cache)\n"
         "print(json.dumps({'mods': [m for m in ('triton', "
         "'torch.utils.cpp_extension', 'jax', 'repro') if m in sys.modules],"
         " 'libs': len(_build._libs), 'lib': all(m._lib is None "

@@ -511,11 +511,22 @@ def test_dbuf_copy_partial_tile_and_tail_on_card(num_buffers):
 
 
 @pytest.mark.gpu
-def test_dbuf_copy_rejects_an_unaligned_start_on_card():
+@pytest.mark.parametrize("num_buffers", range(1, 10))
+def test_dbuf_copy_unaligned_start_on_card(num_buffers):
+    """A start 1, 3 and 15 bytes past 16-byte alignment, over 3 tiles and
+    a ragged 80 + 13 bytes and over fewer bytes than one tile: each one
+    launch, exact (the kernel's shifted stores)."""
     _card()
-    x = _int8_on_card(64 * 64, 9, offset=1).view(64, 64)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        dbuf.dbuf_copy(x, block_rows=64)
+    tile = dbuf._library().repro_dbuf_tile_bytes()
+    for offset in (1, 3, 15):
+        for n in (3 * tile + 5 * 16 + 13, 1000):
+            x = _int8_on_card(n, offset, offset=offset).view(1, n)
+            assert x.data_ptr() % 16 == offset
+            before = dbuf.launches
+            got = dbuf.dbuf_copy(x, block_rows=1, num_buffers=num_buffers)
+            assert dbuf.launches == before + 1
+            assert torch.equal(got, dbuf.dbuf_copy_plain(
+                x, block_rows=1, num_buffers=num_buffers))
 
 
 @pytest.mark.gpu
