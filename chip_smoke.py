@@ -81,6 +81,19 @@ non-zero. Phases:
            lengths so that it must preempt; and in float32 at 4 layers, the
            first decode logits of the paged engine against the dense
            engine's, gated
+  fleet    the dissect→deploy loop through the port's fleet on the same
+           weights, one copy shared by every replica: an N=1 fleet on the
+           paged phase's workload, its tokens and ticks bit for bit the
+           paged engine's; GTX980 dissected on start (torch engine, trace
+           cache off) with no failing diff row, no scan launch, and the
+           committed profile's page_len and pool; three replicas
+           (tpu_v5e, TeslaV100, the fresh GTX980) streaming the
+           launcher's fleet workload through the front end, checked every
+           tick, no leaked page, no margin violation, replayed with the
+           same decision log and tokens; auto tiers on a seeded chat trace
+           and a seeded fault campaign, each run twice and held to
+           bit-identical replay; float32 at 4 layers, a tpu_v5e/TeslaV100
+           fleet's tokens equal to N=1's; no flash and no scan launch
 
 Then one line ``{"kernels": [...]}``, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -598,10 +611,12 @@ def rmsnorm_phase(torch, dev, card: str) -> dict:
 
 
 def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
-                  ) -> None:
+                  ) -> dict:
     """Full-width granite-8b through the launcher's paged engine, on the
     dense phase's weights and workload; then a tight pool; then paged vs
-    dense first-decode logits in float32 at 4 layers."""
+    dense first-decode logits in float32 at 4 layers. Returns the first
+    run's workload, geometry, tokens and ticks: the fleet phase's N=1
+    oracle."""
     import contextlib
     import io
 
@@ -677,10 +692,13 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
               f"choose_page_len {want_len}")
         check(fa.launches == 0,
               f"the paged run launched flash {fa.launches} times")
-        return eng, rec
+        return eng, rec, got
 
-    eng, rec = run(None)
+    eng, rec, got = run(None)
     record("paged", step="serve", max_len=768, slots=4, **rec)
+    oracle = dict(requests=8, slots=4, max_len=768, seed=0, tokens=got,
+                  ticks=rec["ticks"], page_len=eng.page_len,
+                  num_pages=eng.alloc.num_pages)
 
     # where the time goes: a warm window of 8 decode ticks, 4 slots busy
     prof = PagedServeEngine(cfg, params, max_slots=4, max_len=768)
@@ -703,7 +721,7 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
     # a pool three requests' worst case deep: the workload must preempt
     worst = max(eng._worst_case_pages(r) for r in eng.finished)
     del eng
-    tight, rec = run(3 * worst + paging.SCRATCH_PAGES)
+    tight, rec, _ = run(3 * worst + paging.SCRATCH_PAGES)
     record("paged", step="tight_pool", worst_case_pages=worst, **rec)
     check(rec["preemptions"] > 0, "the tight pool did not preempt")
     del tight
@@ -748,6 +766,331 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
     check(bool(torch.isfinite(a).all()), "paged f32 logits not finite")
     check(rel <= PAGED_REL_RMS_TOL,
           f"paged vs dense f32 logits differ by {rel} (rel RMS)")
+    return oracle
+
+
+#: the fleet phase's sizes: the launcher's ``_fleet_run`` workload (16
+#: requests, prompts and new tokens in [4, 32) from seed 0) on three
+#: replicas of 4 slots at max_len 96; a seeded chat/poisson trace; a
+#: seeded fault campaign; and the float32 mixed fleet at 4 layers
+FLEET_SIZE = dict(requests=16, slots=4, max_len=96, trace_rate=0.5,
+                  trace_horizon=24, campaign_requests=12, campaign_rate=0.05,
+                  f32_layers=4, f32_requests=8, f32_slots=2)
+
+
+def fleet_phase(torch, dev, cfg, params, paged: dict, card: str,
+                size: dict = FLEET_SIZE) -> dict:
+    """The dissect→deploy loop through the port's fleet, on the paged
+    phase's weights (one copy, shared by every replica): an N=1 fleet
+    held bit for bit to the paged engine; GTX980 dissected on start and
+    bound to a replica; a heterogeneous fleet (tpu_v5e, TeslaV100, the
+    fresh GTX980) checked every tick and replayed; auto tiers on a seeded
+    trace and a seeded fault campaign, each run twice; a float32 mixed
+    fleet against N=1. Returns each kernel's launches over the phase."""
+    import gc
+
+    from repro_torch.core import tracecache
+    from repro_torch.core.costmodel import kv_bytes_per_token
+    from repro_torch.kernels import batch_cache as bc
+    from repro_torch.kernels import dbuf_copy, memcpy, pchase, rmsnorm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import strided
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.profile import diffing, pipeline, store
+    from repro_torch.serve.faults import FaultInjector, run_campaign
+    from repro_torch.serve.fleet import (OUTCOME_CLASSES, FleetEngine,
+                                         resolve_fleet_profile)
+    from repro_torch.serve.frontend import FleetFrontend
+    from repro_torch.serve.planner import plan_for_trace
+    from repro_torch.serve.workload import (WorkloadSpec, generate_trace,
+                                            replay_trace)
+
+    mods = {"flash_attention": fa, "pchase": pchase, "memcpy": memcpy,
+            "dbuf_copy": dbuf_copy, "strided": strided, "rmsnorm": rmsnorm,
+            "batch_cache": bc}
+    fa.reset_launches()
+    for m in mods.values():
+        m.launches = 0
+    t_phase = time.perf_counter()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def release():
+        """Free the device memory of fleets gone out of use (a checked
+        fleet refers to itself, so only the cycle collector frees it)."""
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def checked(fleet):
+        """Check the fleet's books after every tick."""
+        step = fleet.step
+
+        def step_and_check():
+            live = step()
+            fleet.check_invariants()
+            return live
+        fleet.step = step_and_check
+        return fleet
+
+    # -- 1. N=1: the paged engine's schedule, bit for bit ---------------------
+    n1 = checked(FleetEngine(cfg, params, max_slots=paged["slots"],
+                             max_len=paged["max_len"], replicas=1))
+    for r in serve._workload(cfg, argparse.Namespace(**{
+            k: paged[k] for k in ("requests", "max_len", "seed")})):
+        n1.submit(r)
+    t0 = time.perf_counter()
+    n1.run_to_completion()
+    sync()
+    wall = time.perf_counter() - t0
+    got = {r.uid: r.generated for r in n1.finished()}
+    eng = n1.replicas[0].engine
+    record("fleet", step="n1_oracle", requests=len(got),
+           tokens=sum(map(len, got.values())), ticks=n1.ticks,
+           paged_ticks=paged["ticks"], wall_ms=wall * 1e3,
+           page_len=eng.page_len, num_pages=eng.alloc.num_pages,
+           uids_equal_to_paged_bf16=sum(
+               got.get(u) == g for u, g in paged["tokens"].items()),
+           card=card)
+    check(got == paged["tokens"],
+          "the N=1 fleet's tokens differ from the paged engine's")
+    check(n1.ticks == paged["ticks"],
+          f"the N=1 fleet took {n1.ticks} ticks, the paged engine "
+          f"{paged['ticks']}")
+    check((eng.page_len, eng.alloc.num_pages)
+          == (paged["page_len"], paged["num_pages"]),
+          "the N=1 fleet's pages differ from the paged engine's")
+    del n1, eng
+    release()
+
+    # -- 2. dissect on start --------------------------------------------------
+    with tracecache.disabled():
+        t0 = time.perf_counter()
+        fresh = pipeline.dissect_device("GTX980", engine="torch", device=dev)
+        dissect_s = time.perf_counter() - t0
+    diff = diffing.diff_profiles(fresh, store.load_profile("GTX980"))
+    bad = [r.field for r in diff if not r.ok]
+    scan_launches = bc.launches
+    record("fleet", step="dissect_on_start", gpu="GTX980",
+           engine=fresh.engine, wall_s=dissect_s, timings=fresh.timings,
+           rows=len(diff), failing_rows=bad, scan_launches=scan_launches,
+           card=card)
+    check(not bad, f"GTX980 dissected on start diffs in {bad}")
+    check(scan_launches == 0, f"the dissection launched the scan "
+          f"{scan_launches} times")
+
+    # -- 3. a heterogeneous fleet: tpu_v5e, TeslaV100, the fresh GTX980 -------
+    profiles = ["tpu_v5e", "TeslaV100", fresh]
+    n_req, slots, max_len = size["requests"], size["slots"], size["max_len"]
+
+    def workload(n):
+        """The launcher's fleet workload, seed 0."""
+        return [(r.prompt, r.max_new_tokens) for r in serve._workload(
+            cfg, argparse.Namespace(requests=n, max_len=max_len, seed=0))]
+
+    def stream(fleet, n):
+        front = FleetFrontend(fleet)
+        t0 = time.perf_counter()
+        for uid, (prompt, n_new) in enumerate(workload(n)):
+            front.submit_blocking(prompt, n_new, uid=uid)
+        handles = front.run()
+        sync()
+        return front, handles, time.perf_counter() - t0
+
+    def hetero():
+        """One run of the heterogeneous fleet: what it decided and made."""
+        fleet = checked(FleetEngine(cfg, params, max_slots=slots,
+                                    max_len=max_len, profiles=profiles))
+        _, handles, wall = stream(fleet, n_req)
+        check(all(r.engine.params is params for r in fleet.replicas),
+              "a replica holds its own weights")
+        return dict(
+            log=fleet.decision_log(), stats=fleet.stats(), wall=wall,
+            violations=len(fleet.margin_violations()),
+            tokens={h.uid: h.tokens for h in handles},
+            answered=len(handles) == n_req and all(
+                h.done and len(h.tokens) == h.request.max_new_tokens
+                for h in handles),
+            replicas=[{"name": r.name, "page_len": r.engine.page_len,
+                       "pool": r.engine.alloc.num_pages,
+                       "pool_bytes": r.engine.alloc.num_pages
+                       * r.engine.page_len * kv_tok,
+                       "inflight_bound": r.inflight_bound,
+                       "finished": r.engine.stats()["finished"],
+                       "steps": r.engine.steps,
+                       "peak_pages": r.engine.peak_pages}
+                      for r in fleet.replicas])
+
+    kv_tok = kv_bytes_per_token(cfg)
+    release()
+    at_start = (torch.cuda.memory_allocated(dev) if dev.type == "cuda"
+                else None)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    first = hetero()
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    release()
+    again = hetero()
+    release()
+    s, tokens = first["stats"], first["tokens"]
+    toks = sum(map(len, tokens.values()))
+    committed = FleetEngine(cfg, params, max_slots=slots, max_len=max_len,
+                            profiles=["GTX980"]).replicas[0].engine
+    committed_pages = (committed.page_len, committed.alloc.num_pages)
+    del committed
+    solo = FleetEngine(cfg, params, max_slots=slots, max_len=max_len,
+                       replicas=1)
+    solo_tokens = {h.uid: h.tokens for h in stream(solo, n_req)[1]}
+    del solo
+    record("fleet", step="heterogeneous", requests=len(tokens),
+           tokens=toks, ticks=s["ticks"], wall_ms=first["wall"] * 1e3,
+           tokens_per_s=toks / first["wall"],
+           replay_wall_ms=again["wall"] * 1e3, replicas=first["replicas"],
+           decisions=s["decisions"], migrations=s["migrations"],
+           preemptions=s["preemptions"], pages_leaked=s["pages_leaked"],
+           margin_violations=first["violations"],
+           committed_gtx980=list(committed_pages),
+           memory_allocated_at_start=at_start,
+           max_memory_allocated=peak,
+           param_bytes=sum(p.numel() * p.element_size()
+                           for p in params.parameters()),
+           uids_equal_to_n1_bf16=sum(solo_tokens.get(u) == g
+                                     for u, g in tokens.items()),
+           card=card)
+    check(first["answered"], "the fleet did not answer every request in "
+          "full")
+    check(all(0 <= t < cfg.vocab_size for g in tokens.values() for t in g),
+          "fleet tokens out of range")
+    check(s["pages_leaked"] == 0, f"{s['pages_leaked']} pages leaked")
+    check(first["violations"] == 0, "the router broke its margin")
+    fresh_pages = (first["replicas"][2]["page_len"],
+                   first["replicas"][2]["pool"])
+    check(fresh_pages == committed_pages,
+          f"the fresh GTX980 profile sizes pages {fresh_pages}, the "
+          f"committed one {committed_pages}")
+    check(again["log"] == first["log"],
+          "the heterogeneous fleet's decision log diverged on replay")
+    check(again["tokens"] == tokens,
+          "the heterogeneous fleet's tokens diverged on replay")
+    del first, again
+
+    # -- 4. auto tiers on a seeded trace, and a seeded fault campaign ---------
+    spec = WorkloadSpec(scenario="chat", arrival="poisson",
+                        rate=size["trace_rate"],
+                        horizon=size["trace_horizon"], seed=0,
+                        max_len=max_len, vocab_size=cfg.vocab_size)
+    trace = generate_trace(spec)
+    tiered = []
+    for _ in range(2):
+        tf = checked(FleetEngine(cfg, params, max_slots=slots,
+                                 max_len=max_len, profiles=profiles,
+                                 tiers="auto"))
+        front = FleetFrontend(tf)
+        t0 = time.perf_counter()
+        replay_trace(front, trace)
+        sync()
+        tiered.append((tf, front, time.perf_counter() - t0))
+    (tf, front, wall), (tf2, front2, _) = tiered
+    rep = front.slo.report()
+    plan = plan_for_trace(cfg, trace, spec=resolve_fleet_profile(profiles[0]),
+                          max_slots=slots, max_len=max_len)
+    ts = tf.stats()
+    record("fleet", step="tiers_auto", tiers=ts["tiers"],
+           trace=trace.stats(), fingerprint=trace.fingerprint(),
+           ticks=ts["ticks"], wall_ms=wall * 1e3, handoffs=ts["handoffs"],
+           handoff_aborts=ts["handoff_aborts"], decisions=ts["decisions"],
+           pages_leaked=ts["pages_leaked"], slo=rep.lines(),
+           planned_residence_ticks=plan.predicted_residence_ticks,
+           measured_residence_ticks=rep.mean_residence_ticks,
+           planned_replicas=plan.replicas, card=card)
+    check(ts["handoffs"] > 0, "the auto tiers made no handoff")
+    check(generate_trace(spec).fingerprint() == trace.fingerprint(),
+          "the trace is not a function of its spec")
+    check(repr(front2.slo.report().key()) == repr(rep.key()),
+          "the SLO report diverged on replay")
+    check(tf2.decision_log() == tf.decision_log(),
+          "the tiered decision log diverged on replay")
+    check(ts["pages_leaked"] == 0, f"{ts['pages_leaked']} pages leaked")
+    del tiered, tf, tf2, front, front2
+    release()
+
+    campaigns = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        cf = checked(FleetEngine(cfg, params, max_slots=slots,
+                                 max_len=max_len, profiles=profiles))
+        report = run_campaign(cf, workload(size["campaign_requests"]),
+                              FaultInjector.campaign(
+                                  0, rate=size["campaign_rate"]))
+        sync()
+        campaigns.append((report, time.perf_counter() - t0))
+    (a, wall), (b, _) = campaigns
+    record("fleet", step="fault_campaign", seed=0,
+           rate=size["campaign_rate"], requests=size["campaign_requests"],
+           events=a.event_counts, outcomes=a.outcome_counts(),
+           deaths=a.stats["deaths"], quarantines=a.stats["quarantines"],
+           readmits=a.stats["readmits"], degrades=a.stats["degrades"],
+           lost=a.stats["lost"], ticks=a.stats["ticks"],
+           log_entries=len(a.log), pages_leaked=a.stats["pages_leaked"],
+           wall_ms=wall * 1e3, streams_equal=a.streams == b.streams,
+           card=card)
+    check(sorted(a.outcomes) == list(range(size["campaign_requests"]))
+          and set(a.outcomes.values()) <= set(OUTCOME_CLASSES),
+          f"unclassified requests: {a.outcomes}")
+    check(a.log == b.log, "the campaign's merged log diverged on replay")
+    check(a.outcomes == b.outcomes, "the campaign's outcomes diverged")
+    check(a.streams == b.streams, "the campaign's streams diverged")
+    check(a.stats["pages_leaked"] == 0,
+          f"{a.stats['pages_leaked']} pages leaked at drain")
+    del campaigns, a, b, cf
+    release()
+
+    # -- 5. float32: a mixed fleet against N=1 --------------------------------
+    layers = min(size["f32_layers"], cfg.num_layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                num_layers=layers)
+    params32 = T.TransformerLM(
+        cfg32, embed=params.embed.float(), head=params.head.float(),
+        final_norm=params.final_norm.float(),
+        blocks=[{n: t.float() for n, t in b.items()}
+                for b in params.blocks[:layers]])
+    work32 = serve._workload(cfg32, argparse.Namespace(
+        requests=size["f32_requests"], max_len=max_len, seed=0))
+
+    def f32_run(**kw):
+        f = checked(FleetEngine(cfg32, params32, max_slots=size["f32_slots"],
+                                max_len=max_len, **kw))
+        for r in work32:
+            f.submit(serve.Request(r.uid, r.prompt, r.max_new_tokens))
+        f.run_to_completion()
+        return f, {r.uid: r.generated for r in f.finished()}
+
+    mixed, mixed_tokens = f32_run(profiles=["tpu_v5e", "TeslaV100"])
+    _, solo_tokens = f32_run(replicas=1)
+    equal = sum(mixed_tokens.get(u) == g for u, g in solo_tokens.items())
+    record("fleet", step="mixed_vs_n1_f32", layers=layers,
+           requests=len(work32), uids_equal=equal,
+           page_lens=[r.engine.page_len for r in mixed.replicas],
+           finished_per_replica=[r.engine.stats()["finished"]
+                                 for r in mixed.replicas],
+           first_difference={u: common_prefix(mixed_tokens.get(u, []), g)
+                             for u, g in solo_tokens.items()
+                             if mixed_tokens.get(u) != g}, card=card)
+    check(len(solo_tokens) == len(work32) and mixed_tokens == solo_tokens,
+          "the float32 mixed fleet's tokens differ from N=1's")
+    del mixed, params32
+
+    # -- 6. launches over the phase -------------------------------------------
+    launches = {name: m.launches for name, m in mods.items()}
+    record("fleet", step="launches", launches=launches,
+           seconds=time.perf_counter() - t_phase, card=card)
+    check(launches["flash_attention"] == 0 and launches["batch_cache"] == 0,
+          f"the fleet path launched a kernel: {launches}")
+    return launches
 
 
 def measurement(torch, dev, card: str) -> list[dict]:
@@ -900,7 +1243,7 @@ def measurement(torch, dev, card: str) -> list[dict]:
     record("check", value_errors_on_cuda=errors)
     check(all(errors.values()), f"a ValueError was not raised: {errors}")
 
-    # -- times: kernel, plain, library and bound ms ------------------------------
+    # -- times: kernel, plain, library and bound ms ---------------------------
     times = {}
     clock_hz = big_cycles.elapsed_cycles / big_cycles.elapsed_ns * 1e9
     times["pchase"] = dict(
@@ -952,7 +1295,7 @@ def measurement(torch, dev, card: str) -> list[dict]:
         record("times", kernel=name, card=card, **t)
     del out
 
-    # -- measure: the path end to end, counted -----------------------------------
+    # -- measure: the path end to end, counted --------------------------------
     mods = {"pchase": pc, "memcpy": mc, "dbuf_copy": dbuf, "strided": st}
     for m in mods.values():
         m.launches = 0
@@ -1113,7 +1456,7 @@ def dissect_phase(torch, dev, card: str) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.profile import diffing, pipeline, store
 
-    # -- check: the scan kernel, exactly ---------------------------------------
+    # -- check: the scan kernel, exactly --------------------------------------
     names = sorted(devices.SIM_CACHES)
     geoms = [devices.SIM_CACHES[n]().geom for n in names]
     lane_geoms = [g for g in geoms for _ in range(2)]
@@ -1160,7 +1503,7 @@ def dissect_phase(torch, dev, card: str) -> dict:
     record("check", kernel="batch_cache", value_error_too_wide=raised)
     check(raised, "a lane of 64 x 1024 ways did not raise ValueError")
 
-    # -- dissect: the main path, counted ----------------------------------------
+    # -- dissect: the main path, counted --------------------------------------
     bc.launches = 0
     profiles, rows = {}, {}
     for gpu in DISSECT_GPUS:
@@ -1234,7 +1577,7 @@ def dissect_phase(torch, dev, card: str) -> dict:
           f"torch engine {speedup:.1f}x the vector engine, below "
           f"{MIN_BATCHED_SPEEDUP}x")
 
-    # -- times: kernel, plain (smaller, scaled) and the two bounds --------------
+    # -- times: kernel, plain (smaller, scaled) and the two bounds ------------
     # a shared-memory round trip, from the card's own P-chase stamps at L1
     # (16 KB at a 32-byte stride, the later of 16 passes)
     l1 = pc.pchase_trace_cycles(pc.uniform_init(4096, 8, dev), 4088,
@@ -1273,7 +1616,7 @@ def dissect_phase(torch, dev, card: str) -> dict:
     record("times", kernel="batch_cache", card=card, **t)
     return {"name": "batch_cache", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/batch_cache.cu",
-            "replaces": "src/repro/core/cachesim_jax.py:293",
+            "replaces": "src/repro/core/cachesim_jax.py:288",
             "launches": launches, "max_abs_err": 0.0, **t,
             "batched_engine_speedup": speedup, "card": card}
 
@@ -1343,7 +1686,7 @@ def main() -> int:
         check(bool(hgmma) and all(hgmma.values()),
               f"the bf16 flash kernels hold no HGMMA instruction: {hgmma}")
 
-    # -- check: kernel against its plain version --------------------------------
+    # -- check: kernel against its plain version ------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def qkv(bh, bhkv, sq, sk, d, dtype):
@@ -1450,7 +1793,7 @@ def main() -> int:
     dissected = dissect_phase(torch, dev, card)
     torch.cuda.empty_cache()
 
-    # -- serving: full-width granite-8b through the launcher -------------------
+    # -- serving: full-width granite-8b through the launcher ------------------
     cfg = dataclasses.replace(configs.get_config("granite-8b"),
                               attention_impl="flash")
     t0 = time.perf_counter()
@@ -1582,8 +1925,10 @@ def main() -> int:
 
     del prof_cache, loop, run, eng, finished
     torch.cuda.empty_cache()
-    paged_serving(torch, cfg, params, dense_tokens, trace_dir)
+    oracle = paged_serving(torch, cfg, params, dense_tokens, trace_dir)
     serving_rmsnorm_launches = rn.launches
+    torch.cuda.empty_cache()
+    fleet_launches = fleet_phase(torch, dev, cfg, params, oracle, card)
     del params
     torch.cuda.empty_cache()
 
@@ -1605,6 +1950,8 @@ def main() -> int:
         "card": card}]
     rms_record["launches"] = serving_rmsnorm_launches
     kernels += [rms_record] + measured + [dissected]
+    for k in kernels:
+        k["fleet_launches"] = fleet_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -2,7 +2,7 @@
 
 The plain dense GQA family is ported; the other architectures of
 ``repro.configs`` raise ``KeyError`` until their layers are ported
-(ROADMAP.md, queue 1 item 4).
+(ROADMAP.md, queue 1 item 7).
 """
 
 from repro_torch.configs import (
@@ -31,7 +31,7 @@ def list_archs() -> list[str]:
 def _module(arch: str):
     if arch in NOT_PORTED:
         raise KeyError(f"arch {arch!r} is not ported to PyTorch yet "
-                       f"(ROADMAP.md, queue 1 item 4); ported: {list_archs()}")
+                       f"(ROADMAP.md, queue 1 item 7); ported: {list_archs()}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {list_archs()}")
     return _MODULES[arch]

@@ -8,7 +8,7 @@ dicts. Weights keep JAX's ``(in, out)`` layout and multiply as
 ``x @ W``, so a converted JAX pytree needs no transpose.
 
 Sharding annotations (``constrain``) have no counterpart yet: the port
-runs on one card (ROADMAP.md, queue 1 item 10).
+runs on one card (ROADMAP.md, queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 
-NOT_PORTED = "not ported to PyTorch yet (ROADMAP.md, queue 1 item 4)"
+NOT_PORTED = "not ported to PyTorch yet (ROADMAP.md, queue 1 item 7)"
 
 Params = Mapping[str, torch.Tensor]
 

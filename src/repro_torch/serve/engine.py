@@ -40,7 +40,7 @@ from repro_torch.serve import paging
 from repro_torch.serve.paging import OutOfPages, PageAllocator
 
 _NOT_PORTED_MESH = ("a serving mesh is not ported to PyTorch yet "
-                    "(ROADMAP.md, queue 1 item 10)")
+                    "(ROADMAP.md, queue 1 item 9)")
 
 
 @dataclasses.dataclass

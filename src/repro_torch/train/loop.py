@@ -1,5 +1,5 @@
 """Step functions. Only the serve step is ported yet; the training step
-and its optimizer are ROADMAP.md queue 1 item 9."""
+and its optimizer are ROADMAP.md queue 1 item 8."""
 
 from __future__ import annotations
 

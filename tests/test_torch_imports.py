@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch/``, not
-``chip_smoke.py``, ``copy_sweep.py`` nor ``examples/torch_dissect_memory.py``
-imports jax or the JAX package, and importing the
+``chip_smoke.py``, ``copy_sweep.py`` nor the ``examples/torch_*.py``
+twins imports jax or the JAX package, and importing the
 kernels' entry points builds and loads nothing (the build is lazy, at
-first launch)."""
+first launch). On a card, ``examples/torch_dissect_serve.py --quick``
+runs the dissect→deploy loop to its ``ok:`` line."""
 
 import ast
 import json
@@ -16,7 +17,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "copy_sweep.py",
-    ROOT / "examples" / "torch_dissect_memory.py"]
+    ROOT / "examples" / "torch_dissect_memory.py",
+    ROOT / "examples" / "torch_dissect_serve.py",
+    ROOT / "examples" / "torch_fleet_serve.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -47,7 +50,10 @@ def test_guard_sees_the_whole_port():
             "profile.py", "store.py", "paging.py", "chip_smoke.py",
             "copy_sweep.py", "tracecache.py", "spectrum.py", "inference.py",
             "diffing.py", "pipeline.py", "cachesim_torch.py",
-            "batch_cache.py", "torch_dissect_memory.py"} <= names
+            "batch_cache.py", "torch_dissect_memory.py", "tiers.py",
+            "slo.py", "fleet.py", "frontend.py", "faults.py",
+            "workload.py", "planner.py", "torch_dissect_serve.py",
+            "torch_fleet_serve.py"} <= names
 
 
 def test_kernel_entry_points_import_lazily():
@@ -56,6 +62,7 @@ def test_kernel_entry_points_import_lazily():
         "import repro_torch.kernels.ops, repro_torch.launch.serve\n"
         "import repro_torch.core.pchase, repro_torch.core.classic\n"
         "import repro_torch.serve.engine, repro_torch.profile\n"
+        "import repro_torch.serve, repro_torch.serve.faults\n"
         "import repro_torch.core.cachesim_torch, repro_torch.core.inference\n"
         "from repro_torch.kernels import _build, flash_attention, pchase, "
         "memcpy, dbuf_copy, strided, rmsnorm, batch_cache\n"
@@ -71,3 +78,21 @@ def test_kernel_entry_points_import_lazily():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"mods": [], "libs": 0, "lib": True}
+
+
+@pytest.mark.gpu
+def test_dissect_serve_example_runs_on_the_card():
+    """The dissect→deploy loop on the card: the torch engine dissects
+    GTX980, a replica is bound to the fresh profile and serves."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch sees no CUDA device)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable,
+                          str(ROOT / "examples" / "torch_dissect_serve.py"),
+                          "--quick"], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1].startswith("ok: dissect-on-start bound the fleet")
+    assert "engine=torch" in lines[0] and "pages leaked: 0" in lines[-2]

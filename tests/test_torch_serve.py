@@ -102,10 +102,13 @@ def test_launcher_runs_on_cpu_without_launches(engine, capsys):
         assert out["tokens"].shape == (4, 4) and "prefill:" in text
 
 
-@pytest.mark.parametrize("flag", [["--engine", "fleet"], ["--plan"],
+@pytest.mark.parametrize("flag", [["--engine", "fleet", "--mesh-shape", "4"],
+                                  ["--plan", "--mesh-shape", "2,4"],
                                   ["--mesh-shape", "4"]],
                          ids=["flag1", "flag2", "flag3"])
 def test_unported_launcher_paths_exit_naming_roadmap(flag):
+    """Only a serving mesh is left unported: it exits on every engine,
+    and under ``--plan`` too."""
     with pytest.raises(SystemExit, match="ROADMAP"):
         serve.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
                     *flag])

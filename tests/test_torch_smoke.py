@@ -87,3 +87,53 @@ def test_device_turns_split_the_kernel_from_its_library_call_in_order():
            _kernel(k, 1, 0, 750), _kernel(lib, 3, 20, 720)]
     assert smoke().device_turns(dev, "memcpy_kernel") == {
         "kernel": [0.75, 0.74], "library": [0.71, 0.72]}
+
+
+#: the fleet phase at a CPU size: the same steps and gates as on the card
+CPU_FLEET_SIZE = dict(requests=6, slots=2, max_len=48, trace_rate=0.5,
+                      trace_horizon=12, campaign_requests=6,
+                      campaign_rate=0.2, f32_layers=2, f32_requests=4,
+                      f32_slots=2)
+
+
+def test_fleet_phase_passes_its_gates_on_the_cpu(capsys):
+    """``fleet_phase`` on smoke granite-8b, on the CPU: every gate of the
+    card's run holds (a failing gate raises), no kernel launches, and one
+    record a step."""
+    import argparse
+    import json
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    mod = smoke()
+    dev = torch.device("cpu")
+    cfg = configs.get_smoke_config("granite-8b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    args = argparse.Namespace(requests=4, slots=2, max_len=48, seed=0,
+                              engine="paged", page_len=None, num_pages=None,
+                              prefill_chunk=None)
+    eng = serve._paged_engine(cfg, params, args)
+    res = serve._engine_run(cfg, params, args, engine=eng)
+    paged = dict(requests=4, slots=2, max_len=48, seed=0,
+                 tokens={r.uid: r.generated for r in res["finished"]},
+                 ticks=eng.steps, page_len=eng.page_len,
+                 num_pages=eng.alloc.num_pages)
+    capsys.readouterr()
+    launches = mod.fleet_phase(torch, dev, cfg, params, paged, "cpu",
+                               size=CPU_FLEET_SIZE)
+    assert set(launches) == set(mod.KERNELS)
+    assert not any(launches.values())
+    records = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith('{"phase": "fleet"')]
+    assert [r["step"] for r in records] == [
+        "n1_oracle", "dissect_on_start", "heterogeneous", "tiers_auto",
+        "fault_campaign", "mixed_vs_n1_f32", "launches"]
+    het = records[2]
+    assert het["requests"] == 6 and het["pages_leaked"] == 0
+    assert [r["name"].split(":")[1] for r in het["replicas"]] == [
+        "tpu_v5e", "TeslaV100", "GTX980"]
+    assert records[3]["handoffs"] > 0
