@@ -94,6 +94,17 @@ non-zero. Phases:
            and a seeded fault campaign, each run twice and held to
            bit-identical replay; float32 at 4 layers, a tpu_v5e/TeslaV100
            fleet's tokens equal to N=1's; no flash and no scan launch
+  bench    the paper's experiments (Tables 5-8, Figs 4/5, 8, 12, 14, 19,
+           the profile round trip and the five serving experiments)
+           through the port's harness CLI, twice in full mode: on the
+           card with four spawned workers, then on the CPU serially, each
+           under a fresh trace-cache root, artifacts under
+           build/repro_torch/bench/; 35 records each, none a DEVIATION or
+           an ERROR, in the same order, every metric equal between the two
+           runs with only the timings masked (BENCH_TIMING_METRICS);
+           strided_kernel_matches_oracle true on the card; at least 3
+           memcpy and 6 strided launches; no file under experiments/ or
+           docs/ changed
 
 Then one line ``{"kernels": [...]}``, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -153,8 +164,6 @@ SETTLING_SPIN_CYCLES = 1 << 17
 #: one head's last kv tile skipped gives 0.13 there and more at shorter
 #: lengths. The allclose at TOL alone lets such a fault pass at S 2048.
 FLASH_TILE_REL_RMS_TOL = 1e-2
-KERNELS = ["flash_attention", "pchase", "memcpy", "dbuf_copy", "strided",
-           "rmsnorm", "batch_cache"]
 GIB = 1 << 30
 
 
@@ -1093,6 +1102,158 @@ def fleet_phase(torch, dev, cfg, params, paged: dict, card: str,
     return launches
 
 
+#: the harness's metrics that time their run (wall clocks and the rates
+#: taken from them): two runs of the same records differ there and
+#: nowhere else. The bench phase and tests/test_torch_bench.py compare
+#: every other field of every metric.
+BENCH_TIMING_METRICS = ("host_memcpy_gbps", "batched_engine_speedup",
+                        "tokens_per_s_dense", "tokens_per_s_paged",
+                        "tokens_per_s_n1_fleet", "tokens_per_s_hetero_fleet",
+                        "scenario_wall_ms", "campaign_wall_ms")
+#: the fields of a metric that two runs must share (``us`` is a timing)
+BENCH_METRIC_FIELDS = ("name", "measured", "expected", "cmp", "tol", "unit",
+                       "verdict")
+#: the bench phase's two full runs of the harness: (torch device, jobs)
+BENCH_RUNS = (("cuda", 4), ("cpu", 1))
+#: experiment x device records of a full run
+BENCH_RECORDS = 35
+#: the least launches of each kernel that the card's run makes: memcpy
+#: once to warm and twice timed (table6 x tpu_v5e), strided once a stride
+#: (table8 x tpu_v5e)
+BENCH_MIN_LAUNCHES = {"memcpy": 3, "strided": 6}
+BENCH_TIMEOUT_S = 900
+
+
+def masked_record(rec: dict) -> dict:
+    """An artifact's record with its timings masked: ``elapsed_s``, each
+    metric's ``us``, and all but the name of each metric in
+    BENCH_TIMING_METRICS."""
+    return {**{k: rec[k] for k in ("experiment", "device", "section",
+                                   "artifact", "verdict", "error")},
+            "metrics": [{"name": m["name"]}
+                        if m["name"] in BENCH_TIMING_METRICS
+                        else {k: m[k] for k in BENCH_METRIC_FIELDS}
+                        for m in rec["metrics"]]}
+
+
+def run_bench(torch_device: str, jobs: int, out: Path, trace_root: Path,
+              only: tuple = ()) -> tuple[dict, float]:
+    """One full run (not --quick) of the port's harness through its CLI,
+    in a process of its own, strict; returns its artifact and seconds.
+    Its stderr goes to ``out`` with the suffix ``.log``."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.bench", "run", "--strict",
+           "--no-csv", "--torch-device", torch_device, "--jobs", str(jobs),
+           "--trace-cache", str(trace_root), "--out", str(out)]
+    for name in only:
+        cmd += ["--only", name]
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=f"{SRC}{os.pathsep}{path}" if path
+               else str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    out.with_suffix(".log").write_text(proc.stderr)
+    check(proc.returncode == 0,
+          f"the harness on {torch_device} (--jobs {jobs}) exited "
+          f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    return json.loads(out.read_text()), seconds
+
+
+def tree_state(*dirs: str) -> dict:
+    """(mtime, size) of every file under the repo's ``dirs``."""
+    return {str(p.relative_to(ROOT)): (p.stat().st_mtime_ns, p.stat().st_size)
+            for d in dirs for p in sorted((ROOT / d).rglob("*"))
+            if p.is_file()}
+
+
+def compare_bench(a: dict, b: dict, records: int) -> None:
+    """The gates on two artifacts of the harness: ``records`` records in
+    each, none a DEVIATION or an ERROR, the same records in the same
+    order, every metric equal with the timings masked (:func:`masked_record`),
+    and ``strided_kernel_matches_oracle`` true in ``a``."""
+    for payload in (a, b):
+        s = payload["summary"]
+        check(len(payload["records"]) == records,
+              f"{len(payload['records'])} records, not {records}")
+        check(s["DEVIATION"] == 0 and s["ERROR"] == 0,
+              f"the harness's run has failing records: {s}")
+    order = [[(r["experiment"], r["device"]) for r in p["records"]]
+             for p in (a, b)]
+    check(order[0] == order[1], "the two runs' records come in different "
+                                f"orders: {order}")
+    differ = {}
+    for ra, rb in zip(a["records"], b["records"]):
+        ma, mb = masked_record(ra), masked_record(rb)
+        if ma != mb:
+            names = [x.get("name") for x, y in zip(ma["metrics"], mb["metrics"])
+                     if x != y]
+            differ[f"{ra['experiment']} x {ra['device']}"] = names or ma
+    check(not differ, f"the runs' records differ, timings masked: {differ}")
+    strided = [m["measured"] for r in a["records"] for m in r["metrics"]
+               if m["name"] == "strided_kernel_matches_oracle"]
+    check(strided == [True],
+          f"strided_kernel_matches_oracle in the first run: {strided}")
+
+
+def bench_phase(card: str, out_dir: Path | None = None,
+                runs: tuple = BENCH_RUNS, only: tuple = (),
+                records: int = BENCH_RECORDS,
+                min_launches: dict = BENCH_MIN_LAUNCHES) -> dict:
+    """The paper's experiments through the port's harness, twice in full
+    mode (``runs``: the card with a spawned pool, then the CPU serially),
+    each under a fresh trace-cache root; the artifacts go to ``out_dir``
+    (``build/repro_torch/bench/``). Gates: :func:`compare_bench`, no file
+    under experiments/ or docs/ changed, and each kernel's launches over
+    the runs (counted by the wrappers' counters in the processes that
+    launched, as the harness reports them) at least ``min_launches``.
+    Returns each kernel's launches over the phase."""
+    import tempfile
+
+    from repro_torch.kernels import KERNELS
+    out_dir = out_dir or ROOT / "build" / "repro_torch" / "bench"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    before = tree_state("experiments", "docs")
+    done = []
+    with tempfile.TemporaryDirectory(dir=out_dir) as traces:
+        for torch_device, jobs in runs:
+            out = out_dir / f"chip_smoke_{torch_device}_jobs{jobs}.json"
+            payload, seconds = run_bench(torch_device, jobs, out,
+                                         Path(traces) / f"{torch_device}"
+                                         f"_jobs{jobs}", only)
+            done.append((torch_device, jobs, payload, seconds, out))
+    compare_bench(done[0][2], done[1][2], records)
+    launches = {k: sum(d[2]["kernel_launches"][k] for d in done)
+                for k in KERNELS}
+    first = {m["name"]: m for r in done[0][2]["records"]
+             for m in r["metrics"]}
+
+    def measured(name):
+        m = first.get(name)
+        return m and {k: m[k] for k in ("measured", "cmp", "detail")}
+
+    record("bench", runs=[
+        {"torch_device": dev, "jobs": jobs, "seconds": seconds,
+         "summary": payload["summary"], "records": len(payload["records"]),
+         "kernel_launches": payload["kernel_launches"],
+         "artifact": str(out.relative_to(ROOT)) if out.is_relative_to(ROOT)
+         else str(out)}
+        for dev, jobs, payload, seconds, out in done],
+        masked=list(BENCH_TIMING_METRICS),
+        host_memcpy_gbps=measured("host_memcpy_gbps"),
+        batched_engine_speedup=measured("batched_engine_speedup"),
+        launches=launches, card=card)
+    check(tree_state("experiments", "docs") == before,
+          "a run of the harness changed a file under experiments/ or docs/")
+    for name, least in min_launches.items():
+        check(launches[name] >= least,
+              f"the harness launched {name} {launches[name]} times, "
+              f"not at least {least}: its records did not come from the "
+              "kernel")
+    return launches
+
+
 def measurement(torch, dev, card: str) -> list[dict]:
     """The paper's measurement path: check each kernel against its plain
     version, time it, then drive the path end to end with the launch
@@ -1101,6 +1262,7 @@ def measurement(torch, dev, card: str) -> list[dict]:
 
     import numpy as np
 
+    from repro_torch.benchmarks import table6_global_bw as t6
     from repro_torch.core import classic
     from repro_torch.core import pchase as chase
     from repro_torch.kernels import dbuf_copy as dbuf
@@ -1159,6 +1321,11 @@ def measurement(torch, dev, card: str) -> list[dict]:
                   mc.memcpy_plain(y), dtype=str(dtype), shape=list(shape),
                   block_rows=block)
         del x
+    # the bench path's copy (table6_global_bw x tpu_v5e, full mode)
+    y = randn(t6.COPY_SHAPE, torch.float32)
+    exact("memcpy", mc.memcpy(y, block_rows=t6.COPY_BLOCK_ROWS),
+          mc.memcpy_plain(y), dtype="torch.float32", shape=list(y.shape),
+          block_rows=t6.COPY_BLOCK_ROWS, path="bench")
     x1g = randn((GIB // 4096, 1024), torch.float32)
     for nb in (1, 2, 3, 4):
         exact("dbuf_copy", dbuf.dbuf_copy(x1g, num_buffers=nb),
@@ -1633,7 +1800,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch import configs, resolve_device
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import KERNELS, _build
     from repro_torch.kernels import batch_cache as bc
     from repro_torch.kernels import dbuf_copy as dbuf
     from repro_torch.kernels import flash_attention as fa
@@ -1931,6 +2098,7 @@ def main() -> int:
     fleet_launches = fleet_phase(torch, dev, cfg, params, oracle, card)
     del params
     torch.cuda.empty_cache()
+    bench_launches = bench_phase(card)
 
     t = times[(32, 256)]
     kernels = [{
@@ -1952,6 +2120,7 @@ def main() -> int:
     kernels += [rms_record] + measured + [dissected]
     for k in kernels:
         k["fleet_launches"] = fleet_launches[k["name"]]
+        k["bench_launches"] = bench_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -1,9 +1,10 @@
 """The port stands alone: no module of ``src/repro_torch/``, not
 ``chip_smoke.py``, ``copy_sweep.py`` nor the ``examples/torch_*.py``
-twins imports jax or the JAX package, and importing the
-kernels' entry points builds and loads nothing (the build is lazy, at
-first launch). On a card, ``examples/torch_dissect_serve.py --quick``
-runs the dissect→deploy loop to its ``ok:`` line."""
+twins imports jax, the JAX package or its experiment package
+``benchmarks``, and importing the kernels' entry points builds and loads
+nothing (the build is lazy, at first launch). On a card,
+``examples/torch_dissect_serve.py --quick`` runs the dissect→deploy loop
+to its ``ok:`` line, and the port's harness runs Table 8 on the kernels."""
 
 import ast
 import json
@@ -24,7 +25,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "benchmarks")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -53,7 +54,15 @@ def test_guard_sees_the_whole_port():
             "batch_cache.py", "torch_dissect_memory.py", "tiers.py",
             "slo.py", "fleet.py", "frontend.py", "faults.py",
             "workload.py", "planner.py", "torch_dissect_serve.py",
-            "torch_fleet_serve.py"} <= names
+            "torch_fleet_serve.py", "registry.py", "runner.py", "result.py",
+            "report.py", "__main__.py", "autotune.py", "common.py",
+            "table5_cache_params.py", "fig8_tlb.py",
+            "fig14_latency_spectrum.py", "fig4_5_classic_contradiction.py",
+            "fig19_kepler_modes.py", "table6_global_bw.py",
+            "fig12_throughput.py", "table7_shared_bw.py",
+            "table8_bank_conflict.py", "profile_roundtrip.py",
+            "serve_paging.py", "serve_fleet.py", "serve_workload.py",
+            "serve_tiers.py", "serve_faults.py"} <= names
 
 
 def test_kernel_entry_points_import_lazily():
@@ -64,6 +73,8 @@ def test_kernel_entry_points_import_lazily():
         "import repro_torch.serve.engine, repro_torch.profile\n"
         "import repro_torch.serve, repro_torch.serve.faults\n"
         "import repro_torch.core.cachesim_torch, repro_torch.core.inference\n"
+        "import repro_torch.bench, repro_torch.bench.__main__\n"
+        "repro_torch.bench.discover()\n"
         "from repro_torch.kernels import _build, flash_attention, pchase, "
         "memcpy, dbuf_copy, strided, rmsnorm, batch_cache\n"
         "mods = (flash_attention, pchase, memcpy, dbuf_copy, strided, "
@@ -96,3 +107,25 @@ def test_dissect_serve_example_runs_on_the_card():
     lines = out.stdout.strip().splitlines()
     assert lines[-1].startswith("ok: dissect-on-start bound the fleet")
     assert "engine=torch" in lines[0] and "pages leaked: 0" in lines[-2]
+
+
+@pytest.mark.gpu
+def test_bench_runs_table8_on_the_card(tmp_path):
+    """The port's harness on the card: Table 8 on every device, the
+    tpu_v5e record checking the CUDA strided kernel against its oracle."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch sees no CUDA device)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = tmp_path / "table8.json"
+    p = subprocess.run([sys.executable, "-m", "repro_torch.bench", "run",
+                        "--only", "table8_bank_conflict", "--device",
+                        "tpu_v5e", "--strict", "--no-csv", "--out",
+                        str(out)], env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    assert p.returncode == 0, p.stderr
+    payload = json.loads(out.read_text())
+    assert payload["summary"]["PASS"] == 1
+    assert payload["kernel_launches"]["strided"] == 6
+    metrics = {m["name"]: m for m in payload["records"][0]["metrics"]}
+    assert metrics["strided_kernel_matches_oracle"]["measured"] is True

@@ -106,6 +106,7 @@ def test_fleet_phase_passes_its_gates_on_the_cpu(capsys):
     import torch
 
     from repro_torch import configs
+    from repro_torch.kernels import KERNELS
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
@@ -125,7 +126,7 @@ def test_fleet_phase_passes_its_gates_on_the_cpu(capsys):
     capsys.readouterr()
     launches = mod.fleet_phase(torch, dev, cfg, params, paged, "cpu",
                                size=CPU_FLEET_SIZE)
-    assert set(launches) == set(mod.KERNELS)
+    assert set(launches) == set(KERNELS)
     assert not any(launches.values())
     records = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
                if ln.startswith('{"phase": "fleet"')]
@@ -137,3 +138,98 @@ def test_fleet_phase_passes_its_gates_on_the_cpu(capsys):
     assert [r["name"].split(":")[1] for r in het["replicas"]] == [
         "tpu_v5e", "TeslaV100", "GTX980"]
     assert records[3]["handoffs"] > 0
+
+
+#: the bench phase at a CPU size: two of the harness's experiments, on the
+#: CPU through a spawned pool and serially
+CPU_BENCH = dict(runs=(("cpu", 2), ("cpu", 1)),
+                 only=("table8_bank_conflict", "profile_roundtrip"),
+                 records=9)
+
+
+def test_bench_phase_passes_its_gates_on_the_cpu(tmp_path, capsys):
+    """``bench_phase`` on a subset, on the CPU: every gate of the card's
+    run but the launch counts holds (a failing gate raises), no kernel
+    launches, one record."""
+    import json
+
+    from repro_torch.kernels import KERNELS
+
+    mod = smoke()
+    launches = mod.bench_phase("cpu", out_dir=tmp_path, min_launches={},
+                               **CPU_BENCH)
+    assert launches == dict.fromkeys(KERNELS, 0)
+    [rec] = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith('{"phase": "bench"')]
+    assert [(r["torch_device"], r["jobs"], r["records"])
+            for r in rec["runs"]] == [("cpu", 2, 9), ("cpu", 1, 9)]
+    assert all(r["summary"]["PASS"] == 9 for r in rec["runs"])
+    assert rec["batched_engine_speedup"]["cmp"] == "info"
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "chip_smoke_cpu_jobs1.json", "chip_smoke_cpu_jobs1.log",
+        "chip_smoke_cpu_jobs2.json", "chip_smoke_cpu_jobs2.log"]
+
+
+def _artifact():
+    """A two-record artifact of the harness, as ``write_artifact`` lays it
+    out."""
+    def metric(name, measured, **kw):
+        return {"name": name, "measured": measured, "expected": kw.get(
+            "expected"), "cmp": kw.get("cmp", "info"), "tol": 0.05,
+            "unit": "", "detail": "", "us": kw.get("us", 0.0),
+            "verdict": kw.get("verdict", "INFO")}
+    rec = dict(section="§6.2", artifact="Table 8", verdict="PASS",
+               elapsed_s=0.5, error=None)
+    return {"summary": {"PASS": 2, "DEVIATION": 0, "INFO": 0, "ERROR": 0},
+            "records": [
+                {**rec, "experiment": "table8_bank_conflict",
+                 "device": "GTX980", "metrics": [
+                     metric("slope_cycles_per_way", 2.0, expected=2.0,
+                            cmp="close", verdict="PASS", us=3.0)]},
+                {**rec, "experiment": "table8_bank_conflict",
+                 "device": "tpu_v5e", "metrics": [
+                     metric("host_memcpy_gbps", 174.36, us=9.0),
+                     metric("strided_kernel_matches_oracle", True,
+                            expected=True, cmp="eq", verdict="PASS")]}]}
+
+
+def _timings_differ(a):
+    a["records"][0]["elapsed_s"] = 9.0
+    a["records"][0]["metrics"][0]["us"] = 1.0
+    a["records"][1]["metrics"][0]["measured"] = 1.0
+
+
+def _measured_differs(a):
+    a["records"][0]["metrics"][0]["measured"] = 2.5
+
+
+def _order_differs(a):
+    a["records"].reverse()
+
+
+def _strided_false(a):
+    a["records"][1]["metrics"][1]["measured"] = False
+
+
+def _deviation(a):
+    a["summary"]["DEVIATION"] = 1
+
+
+@pytest.mark.parametrize("change,both,ok", [
+    (None, False, True), (_timings_differ, False, True),
+    (_measured_differs, False, False), (_order_differs, False, False),
+    (_strided_false, True, False), (_deviation, True, False)])
+def test_compare_bench_masks_only_the_timings(change, both, ok):
+    """Two runs may differ in their timings alone; a gate on the first
+    run (the strided check) or on both (no deviation) holds even where
+    the two agree."""
+    mod = smoke()
+    a, b = _artifact(), _artifact()
+    for art in (a, b) if both else (a,):
+        if change:
+            change(art)
+    if ok:
+        mod.compare_bench(a, b, records=2)
+    else:
+        with pytest.raises(RuntimeError):
+            mod.compare_bench(a, b, records=2)
