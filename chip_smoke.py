@@ -16,8 +16,10 @@ non-zero. Phases:
   check    the flash kernel against its plain PyTorch version on the card,
            bf16 (the tensor-core route) and float32 (the FMA route), at
            granite-8b's heads over ragged and long lengths, small head dims
-           and three GQA ratios; bf16 also by the worst relative RMS of a
-           64-row tile, beside the reading of one skipped kv tile
+           and three GQA ratios, and at the families phase's shapes
+           (D 80 non-causal, GQA 16/8 at 512); bf16 also by the worst
+           relative RMS of a 64-row tile, beside the reading of one
+           skipped kv tile
   times    kernel, plain version, the PyTorch library call and the bound,
            each kernel and library call also as device time per launch
            from a torch.profiler trace (the event mean of back-to-back
@@ -105,6 +107,27 @@ non-zero. Phases:
            strided_kernel_matches_oracle true on the card; at least 3
            memcpy and 6 strided launches; no file under experiments/ or
            docs/ changed
+  families the other model families through the port's entry points:
+           deepseek-v2-lite-16b (MLA + MoE, 27 layers, 16.2 B parameters)
+           and mamba2-1.3b (48 SSD layers) at full width and depth in
+           bf16, random weights from a seed, through the launcher's loop
+           (MLA naive and absorbed), dense engine and paged engine
+           (checked every tick) on the serving phase's workload, peak
+           memory printed; each in float32 at 4 layers, MoE capacity
+           lifted, paged tokens equal to dense and first-decode logits
+           gated (and absorbed vs naive MLA); the flash kernel on three
+           new paths, hubert-xlarge's forward (48 layers, non-causal, D
+           80, 2 x 1024 frames), internvl2-2b's prefill (24 layers, 256
+           patches + 256 tokens, 4 prompts) and phi3.5-moe's prefill (cut
+           to 8 of 32 layers: 83.7 GB whole, 4 x 256 tokens), every
+           launch on the bf16 route, every call held to the plain version
+           on its own inputs (2e-2 and the tile gate), the output gated
+           against the "ref" path's in float32; jamba and phi3.5 at
+           smoke size, paged against dense. The kernels line counts the
+           launches of the serving and bf16 flash runs (the counts set
+           to 0 just before each) and, apart, over the whole phase with
+           its checks. Flash at the two new shapes is checked and timed
+           with the other flash shapes
 
 Then one line ``{"kernels": [...]}``, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -164,6 +187,14 @@ SETTLING_SPIN_CYCLES = 1 << 17
 #: one head's last kv tile skipped gives 0.13 there and more at shorter
 #: lengths. The allclose at TOL alone lets such a fault pass at S 2048.
 FLASH_TILE_REL_RMS_TOL = 1e-2
+#: flash at the families phase's shapes, (bh, H, Hkv, sq, sk, D, causal):
+#: hubert-xlarge's forward on 2 x 1024 frames, internvl2-2b's prefill of
+#: 4 x (256 patches + 256 tokens)
+FLASH_NEW_SHAPES = {
+    "hubert-xlarge bh 32 S 1024 D 80 non-causal":
+        (32, 16, 16, 1024, 1024, 80, False),
+    "internvl2-2b bh 64/32 S 512 D 128 causal":
+        (64, 16, 8, 512, 512, 128, True)}
 GIB = 1 << 30
 
 
@@ -544,6 +575,79 @@ def common_prefix(a: list, b: list) -> int:
                 min(len(a), len(b)))
 
 
+def checked(engine):
+    """``engine`` (an engine or a fleet) with its books checked after
+    every tick. The wrapper refers to the engine, so only the cycle
+    collector frees the pair."""
+    step = engine.step
+
+    def step_and_check():
+        live = step()
+        engine.check_invariants()
+        return live
+    engine.step = step_and_check
+    return engine
+
+
+def f32_copy(T, params, cfg, layers: int | None = None):
+    """(config, weights) in float32 over the first ``layers`` layers: a
+    copy, the bf16 weights converted exactly."""
+    layers = layers or cfg.num_layers
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                num_layers=layers)
+    f32 = lambda t: t.float()
+    return cfg32, T.TransformerLM(
+        cfg32, embed=f32(params.embed), final_norm=f32(params.final_norm),
+        head=None if params.head is None else f32(params.head),
+        blocks=[{n: f32(t) for n, t in b.items()}
+                for b in params.blocks[:layers]],
+        frontend={n: f32(t) for n, t in params.frontend.items()})
+
+
+def paged_vs_dense(torch, cfg, params, *, requests: int, slots: int,
+                   max_len: int) -> dict:
+    """The launcher's workload through the dense and the paged engine:
+    each request's logits at its first decode step, compared by relative
+    RMS, and the greedy tokens per uid."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
+
+    def run(eng):
+        seen: dict[int, "torch.Tensor"] = {}
+
+        def sampler(logits):
+            if logits.dim() == 2:           # a decode step: (slots, vocab)
+                for slot, req in eng.active.items():
+                    if len(req.generated) == 1 and req.uid not in seen:
+                        seen[req.uid] = logits[slot].clone()
+            return torch.argmax(logits, -1)
+        eng.sampler = sampler
+        for r in serve._workload(cfg, argparse.Namespace(
+                requests=requests, max_len=max_len, seed=0)):
+            eng.submit(r)
+        tokens = {r.uid: r.generated for r in eng.run_to_completion()}
+        return seen, tokens
+
+    dense, dense_tokens = run(ServeEngine(cfg, params, max_slots=slots,
+                                          max_len=max_len))
+    paged, paged_tokens = run(PagedServeEngine(cfg, params, max_slots=slots,
+                                               max_len=max_len))
+    uids = sorted(dense)
+    check(uids == sorted(paged) == list(range(requests)),
+          "the engines did not decode the same requests")
+    a = torch.stack([paged[u] for u in uids])
+    b = torch.stack([dense[u] for u in uids])
+    check(bool(torch.isfinite(a).all()), "paged logits not finite")
+    return dict(requests=requests, decoded=len(uids),
+                rel_rms=((a - b).norm() / b.norm()).item(),
+                max_abs=(a - b).abs().max().item(),
+                max_abs_dense=b.abs().max().item(),
+                tol_rel_rms=PAGED_REL_RMS_TOL,
+                uids_equal=sum(paged_tokens.get(u) == g
+                               for u, g in dense_tokens.items()),
+                tokens_equal=paged_tokens == dense_tokens)
+
+
 def rmsnorm_phase(torch, dev, card: str) -> dict:
     """Check the rmsnorm kernel against its plain version on the card, then
     time it. Returns its kernel record; its launches on the serving path
@@ -641,17 +745,6 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
     kv_tok = kv_bytes_per_token(cfg)
     want_len = paging.choose_page_len(cfg, expected_tokens=768)
 
-    def checked(eng):
-        """Check the books after every tick of ``eng``."""
-        step = eng.step
-
-        def step_and_check():
-            live = step()
-            eng.check_invariants()
-            return live
-        eng.step = step_and_check
-        return eng
-
     def run(num_pages):
         args = argparse.Namespace(requests=8, slots=4, max_len=768, seed=0,
                                   engine="paged", page_len=None,
@@ -736,45 +829,12 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
     del tight
 
     # paged vs dense first-decode logits, float32, 4 layers
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
-                                num_layers=4)
-    params32 = T.TransformerLM(
-        cfg32, embed=params.embed.float(), head=params.head.float(),
-        final_norm=params.final_norm.float(),
-        blocks=[{n: t.float() for n, t in b.items()}
-                for b in params.blocks[:4]])
-
-    def first_decode_logits(eng) -> dict:
-        seen: dict[int, "torch.Tensor"] = {}
-
-        def sampler(logits):
-            if logits.dim() == 2:           # a decode step: (slots, vocab)
-                for slot, req in eng.active.items():
-                    if len(req.generated) == 1 and req.uid not in seen:
-                        seen[req.uid] = logits[slot].clone()
-            return torch.argmax(logits, -1)
-        eng.sampler = sampler
-        for r in serve._workload(cfg32, argparse.Namespace(
-                requests=4, max_len=768, seed=0)):
-            eng.submit(r)
-        eng.run_to_completion()
-        return seen
-
-    dense = first_decode_logits(ServeEngine(cfg32, params32, max_slots=4,
-                                            max_len=768))
-    paged = first_decode_logits(PagedServeEngine(cfg32, params32,
-                                                 max_slots=4, max_len=768))
-    check(sorted(dense) == sorted(paged) == [0, 1, 2, 3],
-          "the engines did not decode the same requests")
-    a = torch.stack([paged[u] for u in range(4)])
-    b = torch.stack([dense[u] for u in range(4)])
-    rel = ((a - b).norm() / b.norm()).item()
-    record("paged", step="paged_vs_dense_f32", layers=4, requests=4,
-           rel_rms=rel, max_abs=(a - b).abs().max().item(),
-           max_abs_dense=b.abs().max().item(), tol_rel_rms=PAGED_REL_RMS_TOL)
-    check(bool(torch.isfinite(a).all()), "paged f32 logits not finite")
-    check(rel <= PAGED_REL_RMS_TOL,
-          f"paged vs dense f32 logits differ by {rel} (rel RMS)")
+    cfg32, params32 = f32_copy(T, params, cfg, 4)
+    rec = paged_vs_dense(torch, cfg32, params32, requests=4, slots=4,
+                         max_len=768)
+    record("paged", step="paged_vs_dense_f32", layers=4, **rec)
+    check(rec["rel_rms"] <= PAGED_REL_RMS_TOL,
+          f"paged vs dense f32 logits differ by {rec['rel_rms']} (rel RMS)")
     return oracle
 
 
@@ -833,17 +893,6 @@ def fleet_phase(torch, dev, cfg, params, paged: dict, card: str,
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-
-    def checked(fleet):
-        """Check the fleet's books after every tick."""
-        step = fleet.step
-
-        def step_and_check():
-            live = step()
-            fleet.check_invariants()
-            return live
-        fleet.step = step_and_check
-        return fleet
 
     # -- 1. N=1: the paged engine's schedule, bit for bit ---------------------
     n1 = checked(FleetEngine(cfg, params, max_slots=paged["slots"],
@@ -1060,13 +1109,7 @@ def fleet_phase(torch, dev, cfg, params, paged: dict, card: str,
 
     # -- 5. float32: a mixed fleet against N=1 --------------------------------
     layers = min(size["f32_layers"], cfg.num_layers)
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
-                                num_layers=layers)
-    params32 = T.TransformerLM(
-        cfg32, embed=params.embed.float(), head=params.head.float(),
-        final_norm=params.final_norm.float(),
-        blocks=[{n: t.float() for n, t in b.items()}
-                for b in params.blocks[:layers]])
+    cfg32, params32 = f32_copy(T, params, cfg, layers)
     work32 = serve._workload(cfg32, argparse.Namespace(
         requests=size["f32_requests"], max_len=max_len, seed=0))
 
@@ -1252,6 +1295,361 @@ def bench_phase(card: str, out_dir: Path | None = None,
               f"not at least {least}: its records did not come from the "
               "kernel")
     return launches
+
+
+#: the families phase's sizes: the serve phase's workload (8 requests, 4
+#: slots, max_len 768) and loop (4 x 256, 16 new) for deepseek-v2-lite
+#: and mamba2 at full width; float32 copies at 4 layers; hubert's forward
+#: on 2 x 1024 frames; internvl2's prefill of 256 patches + 256 tokens
+#: and phi3.5's of 256 tokens, 4 prompts each, phi3.5 cut to 8 layers
+#: (and to 2 in float32); jamba and phi3.5 at their smoke configs
+FAMILIES_SIZE = dict(requests=8, slots=4, max_len=768, loop_batch=4,
+                     loop_prompt=256, loop_gen=16, f32_layers=4,
+                     f32_requests=4, audio_batch=2, audio_frames=1024,
+                     prefill_batch=4, prefill_tokens=256, phi_layers=8,
+                     phi_f32_layers=2, smoke_requests=8, smoke_slots=4,
+                     smoke_max_len=96)
+
+
+def families_phase(torch, dev, card: str, size: dict = FAMILIES_SIZE,
+                   get_config=None) -> dict:
+    """The other model families through the port's entry points:
+    deepseek-v2-lite-16b (MLA + MoE) and mamba2-1.3b (SSD) served at full
+    width and depth through the launcher's loop, dense and paged engines,
+    and held paged against dense in float32 at 4 layers (MoE capacity
+    lifted, so routing does not depend on the batch); MLA's naive and
+    absorbed decode; the flash kernel on three new paths (hubert's
+    non-causal forward at D 80, internvl2's prefill behind its vision
+    front end, phi3.5-moe's prefill), every call held to its plain
+    version on its own inputs and the model's output to the "ref" path;
+    jamba and phi3.5 at smoke size, paged against dense. ``get_config``
+    (default ``configs.get_config``) names the full-width configs.
+    Returns each kernel's launches on the phase's main path (the serving
+    runs and the bf16 flash runs, every count set to 0 just before each
+    and read just after) and over the whole phase, checks included."""
+    import gc
+    import importlib
+
+    from repro_torch import configs
+    from repro_torch.core.costmodel import kv_bytes_per_token
+    from repro_torch.kernels import KERNELS, ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import paging
+
+    get_config = get_config or configs.get_config
+    mods = {n: importlib.import_module(f"repro_torch.kernels.{n}")
+            for n in KERNELS}
+    path, phase = dict.fromkeys(mods, 0), dict.fromkeys(mods, 0)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def release():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak() -> int | None:
+        return torch.cuda.max_memory_allocated() if on_card else None
+
+    def lift(cfg):
+        return (dataclasses.replace(cfg, capacity_factor=float(
+            cfg.num_experts)) if cfg.is_moe else cfg)
+
+    def weights(cfg):
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dev)
+        sync()
+        return params, time.perf_counter() - t0
+
+    def take() -> tuple[dict, dict]:
+        """Each kernel's launches, and flash's by route, since the last
+        call, added to the phase's totals; every count is then 0."""
+        got, routes = {n: m.launches for n, m in mods.items()}, dict(
+            fa.route_launches)
+        for n, m in mods.items():
+            phase[n] += got[n]
+            m.launches = 0
+        fa.reset_launches()
+        return got, routes
+
+    def on_path(fn, *a, **kw):
+        """One run of the phase's main path, every count set to 0 just
+        before it and read just after: ``(result, launches, routes)``."""
+        take()
+        res = fn(*a, **kw)
+        sync()
+        got, routes = take()
+        for n, k in got.items():
+            path[n] += k
+        return res, got, routes
+
+    take()
+
+    # -- 1. full-width serving: deepseek-v2-lite-16b and mamba2-1.3b ----------
+    for arch in ("deepseek-v2-lite-16b", "mamba2-1.3b"):
+        cfg = get_config(arch)
+        release()
+        params, seconds = weights(cfg)
+        n_params = sum(p.numel() for p in params.parameters())
+        record("families", step="init", arch=arch, layers=cfg.num_layers,
+               d_model=cfg.d_model, params=n_params,
+               param_bytes=sum(p.numel() * p.element_size()
+                               for p in params.parameters()),
+               kv_bytes_per_token=kv_bytes_per_token(cfg), seconds=seconds,
+               memory_allocated=torch.cuda.memory_allocated() if on_card
+               else None)
+        check(n_params == T.count_params(cfg),
+              f"{arch}: {n_params} parameters, not count_params'")
+
+        loop_args = argparse.Namespace(batch=size["loop_batch"],
+                                       prompt_len=size["loop_prompt"],
+                                       gen=size["loop_gen"])
+        variants = [("naive", cfg)]
+        if cfg.use_mla:
+            variants.append(("absorbed", dataclasses.replace(
+                cfg, mla_absorbed=True)))
+        loops = {}
+        for name, c in variants:
+            res, _, _ = on_path(serve._batch_loop, c, params, loop_args)
+            toks = res["tokens"]
+            loops[name] = toks
+            b, p_len, gen = (loop_args.batch, loop_args.prompt_len,
+                             loop_args.gen)
+            record("families", step="loop", arch=arch,
+                   mla=name if cfg.use_mla else None, batch=b, prompt=p_len,
+                   gen=gen, prefill_ms=res["prefill_s"] * 1e3,
+                   decode_ms=res["decode_s"] * 1e3,
+                   decode_ms_per_step=res["decode_s"] * 1e3 / (gen - 1),
+                   prefill_tokens_per_s=b * p_len / res["prefill_s"],
+                   decode_tokens_per_s=b * (gen - 1) / res["decode_s"],
+                   max_memory_allocated=peak(), card=card)
+            check(tuple(toks.shape) == (b, gen) and 0 <= int(toks.min())
+                  and int(toks.max()) < cfg.vocab_size,
+                  f"{arch} {name} loop tokens out of range")
+        if cfg.use_mla:
+            record("families", step="mla_absorbed_vs_naive", arch=arch,
+                   dtype=cfg.dtype, token_agreement=(
+                       loops["absorbed"] == loops["naive"]).float()
+                   .mean().item())
+
+        want_len = paging.choose_page_len(cfg,
+                                          expected_tokens=size["max_len"])
+        for engine in ("dense", "paged"):
+            release()
+            args = argparse.Namespace(
+                requests=size["requests"], slots=size["slots"],
+                max_len=size["max_len"], seed=0, engine=engine,
+                page_len=None, num_pages=None, prefill_chunk=None)
+            eng = None
+            if engine == "paged":
+                eng = checked(serve._paged_engine(cfg, params, args))
+            res, _, _ = on_path(serve._engine_run, cfg, params, args,
+                                engine=eng)
+            eng, finished = res["engine"], res["finished"]
+            s = eng.stats()
+            toks = sum(len(r.generated) for r in finished)
+            rec = dict(requests=len(finished), tokens=toks, ticks=s["steps"],
+                       wall_ms=res["wall_s"] * 1e3,
+                       tokens_per_s=toks / res["wall_s"],
+                       max_memory_allocated=peak())
+            if engine == "paged":
+                rec.update(page_len=eng.page_len,
+                           num_pages=eng.alloc.num_pages,
+                           peak_pages=s["peak_pages"],
+                           preemptions=s["preemptions"],
+                           max_slack_tokens=s["max_slack_tokens"],
+                           pages_leaked=eng.alloc.allocated_pages)
+                check(eng.page_len == want_len,
+                      f"{arch}: page_len {eng.page_len}, choose_page_len "
+                      f"{want_len}")
+                check(rec["pages_leaked"] == 0 and
+                      rec["max_slack_tokens"] <= eng.page_len,
+                      f"{arch} paged books: {rec}")
+            record("families", step=engine, arch=arch, slots=size["slots"],
+                   max_len=size["max_len"], card=card, **rec)
+            check(len(finished) == size["requests"] and all(
+                len(r.generated) == r.max_new_tokens for r in finished),
+                f"{arch}: the {engine} engine did not answer every request")
+            check(all(0 <= t < cfg.vocab_size for r in finished
+                      for t in r.generated),
+                  f"{arch}: {engine} engine tokens out of range")
+            del eng, res, finished
+
+        # float32 at 4 layers, MoE capacity lifted: paged against dense
+        cfg32, params32 = f32_copy(T, params, lift(cfg), size["f32_layers"])
+        del params
+        release()
+        rec = paged_vs_dense(torch, cfg32, params32,
+                             requests=size["f32_requests"],
+                             slots=size["slots"], max_len=size["max_len"])
+        extra = {}
+        if cfg.use_mla:
+            # naive and absorbed MLA decode on one prefilled cache
+            prompt = torch.randint(
+                0, cfg.vocab_size, (2, 64), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(4))
+            logits, cache = T.prefill(params32, cfg32, {"tokens": prompt},
+                                      max_len=72)
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            out = {}
+            for name, c in (("naive", cfg32), ("absorbed", dataclasses.replace(
+                    cfg32, mla_absorbed=True))):
+                out[name], _ = T.decode(params32, c, {
+                    k: v.clone() for k, v in cache.items()}, tok, 64)
+            a, b = out["absorbed"], out["naive"]
+            extra["absorbed_vs_naive_rel_rms"] = (
+                (a - b).norm() / b.norm()).item()
+        record("families", step="paged_vs_dense_f32", arch=arch,
+               layers=size["f32_layers"], **rec, **extra)
+        check(rec["tokens_equal"],
+              f"{arch} f32: paged tokens differ from dense")
+        check(rec["rel_rms"] <= PAGED_REL_RMS_TOL,
+              f"{arch} f32: paged vs dense logits differ by {rec['rel_rms']}")
+        check(extra.get("absorbed_vs_naive_rel_rms", 0) <= PAGED_REL_RMS_TOL,
+              f"{arch} f32: absorbed vs naive MLA {extra}")
+        del params32
+
+    # -- 2. flash on the new paths --------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def flash_path(arch, cfg, batch, run, layers_f32=None):
+        """``run(cfg, params, batch)`` with flash in bf16 on the main path,
+        each kernel call captured and held to the plain version on its own
+        inputs; in float32, the output gated against the "ref" path's."""
+        release()
+        params, seconds = weights(cfg)
+        calls = []
+        real = ops.flash_attention
+
+        def captured(q, k, v, **kw):
+            o = real(q, k, v, **kw)
+            calls.append((q, k, v, kw, o))
+            return o
+        ops.flash_attention = captured
+        try:
+            flash, got, routes = on_path(run, dataclasses.replace(
+                cfg, attention_impl="flash"), params, batch)
+        finally:
+            ops.flash_attention = real
+        launched = got["flash_attention"]
+        errs, tiles, oks = [], [], []
+        for q, k, v, kw, o in calls:
+            want = fa.flash_attention_plain(
+                q, k, v, num_q_heads=kw["num_q_heads"],
+                num_kv_heads=kw["num_kv_heads"], causal=kw["causal"])
+            tol = TOL[str(q.dtype).split(".")[1]]
+            errs.append((o.float() - want.float()).abs().max().item())
+            ok = torch.allclose(o.float(), want.float(), atol=tol, rtol=tol)
+            if q.dtype == torch.bfloat16:
+                tiles.append(ref.tile_rel_rms(o, want))
+                ok = ok and tiles[-1] <= FLASH_TILE_REL_RMS_TOL
+            oks.append(ok)
+        shape = [tuple(t.shape) for t in calls[0][:3]] if calls else None
+        causal = calls[0][3]["causal"] if calls else None
+        del calls
+        peak_bf16 = peak()
+        cfg32, params32 = f32_copy(T, params, cfg, layers_f32)
+        del params
+        release()
+        batch32 = {k: v.float() if v.is_floating_point() else v
+                   for k, v in batch.items()}
+        a = run(dataclasses.replace(cfg32, attention_impl="flash"), params32,
+                batch32)
+        b = run(dataclasses.replace(cfg32, attention_impl="ref"), params32,
+                batch32)
+        f32 = {"layers": cfg32.num_layers,
+               "rel_rms": ((a - b).norm() / b.norm()).item(),
+               "max_abs": (a - b).abs().max().item()}
+        del params32, a, b
+        n_attn = [k for k, _, _ in T.layer_plan(cfg)].count("attn")
+        record("families", step="flash_path", arch=arch,
+               layers=cfg.num_layers, attention_layers=n_attn,
+               flash_shape=shape, causal=causal, flash_launches=launched,
+               flash_route_launches=routes, calls_within_gates=sum(oks),
+               max_abs_err=max(errs, default=None),
+               worst_tile_rel_rms=max(tiles, default=None),
+               tol=TOL[cfg.dtype], tol_tile_rel_rms=FLASH_TILE_REL_RMS_TOL,
+               output_shape=list(flash.shape), f32_vs_ref=f32, tol_rel_rms_f32=LOGITS_REL_RMS_TOL,
+               init_seconds=seconds, max_memory_allocated=peak_bf16,
+               card=card)
+        check(bool(torch.isfinite(flash).all()),
+              f"{arch}: flash output not finite")
+        check(len(oks) == n_attn and all(oks),
+              f"{arch}: {len(oks)} flash calls, {sum(oks)} within the "
+              f"gates, for {n_attn} attention layers")
+        if on_card:
+            check(launched == n_attn and routes[fa.ROUTES[
+                cfg.activation_dtype]] == launched,
+                  f"{arch}: flash launched {routes}, not {n_attn} times")
+        check(f32["rel_rms"] <= LOGITS_REL_RMS_TOL,
+              f"{arch}: f32 flash vs ref differ by {f32['rel_rms']}")
+        return launched
+
+    def forward_logits(c, p, batch):
+        return T.forward(p, c, batch)[0]
+
+    def prefill_logits(c, p, batch):
+        return T.prefill(p, c, batch)[0]
+
+    hubert = get_config("hubert-xlarge")
+    frames = torch.randn((size["audio_batch"], size["audio_frames"],
+                          hubert.frontend_dim), generator=gen, device=dev
+                         ).to(hubert.activation_dtype)
+    path_launches = {"hubert-xlarge": flash_path(
+        "hubert-xlarge", hubert, {"frames": frames}, forward_logits)}
+
+    vlm = get_config("internvl2-2b")
+    b, s = size["prefill_batch"], size["prefill_tokens"]
+    batch = {"patches": torch.randn((b, vlm.num_patches, vlm.frontend_dim),
+                                    generator=gen, device=dev
+                                    ).to(vlm.activation_dtype),
+             "tokens": torch.randint(0, vlm.vocab_size, (b, s), device=dev,
+                                     generator=gen)}
+    path_launches["internvl2-2b"] = flash_path("internvl2-2b", vlm, batch,
+                                               prefill_logits)
+
+    phi = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                              num_layers=size["phi_layers"])
+    batch = {"tokens": torch.randint(0, phi.vocab_size, (b, s), device=dev,
+                                     generator=gen)}
+    path_launches["phi3.5-moe-42b-a6.6b"] = flash_path(
+        "phi3.5-moe-42b-a6.6b", phi, batch, prefill_logits,
+        size["phi_f32_layers"])
+    release()
+
+    # -- 3. jamba and phi3.5 at smoke size: paged against dense ---------------
+    for arch in ("jamba-1.5-large-398b", "phi3.5-moe-42b-a6.6b"):
+        cfg = lift(configs.get_smoke_config(arch))
+        params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                               "cpu").to(dev)
+        rec = paged_vs_dense(torch, cfg, params,
+                             requests=size["smoke_requests"],
+                             slots=size["smoke_slots"],
+                             max_len=size["smoke_max_len"])
+        record("families", step="smoke_paged_vs_dense", arch=arch,
+               layers=cfg.num_layers, d_model=cfg.d_model, **rec)
+        check(rec["tokens_equal"] and rec["rel_rms"] <= PAGED_REL_RMS_TOL,
+              f"{arch} smoke: paged vs dense {rec}")
+        del params
+
+    # -- 4. launches on the main path and over the phase ----------------------
+    take()
+    record("families", step="launches", launches=path, phase_launches=phase,
+           flash_path_launches=path_launches,
+           seconds=time.perf_counter() - t_phase, card=card)
+    if on_card:
+        check(path["flash_attention"] == sum(path_launches.values()) > 0
+              and phase["flash_attention"] >= path["flash_attention"],
+              f"the families phase's flash launches: {path}, {phase}")
+    return path, phase
 
 
 def measurement(torch, dev, card: str) -> list[dict]:
@@ -1884,6 +2282,9 @@ def main() -> int:
     cases += [(8, 8, 8, 96, 96, d, True) for d in (16, 32, 64)]
     cases += [(h, h, hkv, 256, 256, 64, True)
               for h, hkv in ((8, 2), (4, 1), (16, 8))]
+    # the families phase's new shapes: hubert-xlarge (16 heads, D 80,
+    # non-causal, 2 x 1024 frames) and internvl2-2b (GQA 16/8, 4 x 512)
+    cases += list(FLASH_NEW_SHAPES.values())
     for dname in ("bfloat16", "float32"):
         dtype = getattr(torch, dname)
         for bh, h, hkv, sq, sk, d, causal in cases:
@@ -1950,6 +2351,29 @@ def main() -> int:
         times[(bh, s)] = t
         record("times", kernel="flash_attention", dtype="bfloat16",
                shape=[bh, s, s, 128], causal=True, card=card, **t)
+
+    # the same at the families phase's new shapes, bf16 (SDPA folds GQA
+    # with enable_gqa)
+    for label, (bh, h, hkv, sq, sk, d, causal) in FLASH_NEW_SHAPES.items():
+        bhkv = bh // h * hkv
+        q, k, v = qkv(bh, bhkv, sq, sk, d, torch.bfloat16)
+        kw = dict(num_q_heads=h, num_kv_heads=hkv, causal=causal,
+                  block_q=sq, block_k=sk)
+        q4, k4, v4 = (t.view(bh // h, -1, t.shape[1], d) for t in (q, k, v))
+        t = kernel_times(
+            torch, lambda: fa.flash_attention(q, k, v, **kw),
+            lambda: fa.flash_attention_plain(q, k, v, num_q_heads=h,
+                                             num_kv_heads=hkv, causal=causal),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal, enable_gqa=True),
+            20, "flash_wgmma")
+        t["bound_ms"], t["bound_by"] = attention_bound(
+            bh, bhkv, sq, sk, d, causal, 2, BF16_FLOP_PER_S)
+        t["max_abs_err"] = errs[("bfloat16", bh, sq, sk, d, h, hkv, causal)]
+        times[label] = t
+        record("times", kernel="flash_attention", dtype="bfloat16",
+               shape=[bh, sq, sk, d], heads=[h, hkv], causal=causal,
+               path=label, card=card, **t)
 
     # the kernels that the serving phases do not launch, checked and timed
     # before them: torch.profiler traces taken after the serving phases'
@@ -2044,11 +2468,7 @@ def main() -> int:
     ref_loop = serve._batch_loop(ref_cfg, params, loop_args)
     agree = (ref_loop["tokens"] == toks).float().mean().item()
     ref_loop_launches = fa.launches
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    params32 = T.TransformerLM(
-        cfg32, embed=params.embed.float(), head=params.head.float(),
-        final_norm=params.final_norm.float(),
-        blocks=[{n: t.float() for n, t in b.items()} for b in params.blocks])
+    cfg32, params32 = f32_copy(T, params, cfg)
     f32_memory = torch.cuda.memory_allocated()
     flash32, f32 = logits_pair(params32, cfg32)
     del params32
@@ -2099,6 +2519,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     bench_launches = bench_phase(card)
+    families_launches, families_phase_launches = families_phase(
+        torch, dev, card)
 
     t = times[(32, 256)]
     kernels = [{
@@ -2113,14 +2535,17 @@ def main() -> int:
         "library_device_ms": t["library_device_ms"],
         "shape": "bf16 causal q (32, 256, 128), k/v (8, 256, 128)",
         "kernel_route": "bf16_wgmma", "launches_by_route": main_routes,
-        "other_shapes": {f"bh {bh} S {sq}": v for (bh, sq), v in times.items()
-                         if (bh, sq) != (32, 256)},
+        "other_shapes": {(k if isinstance(k, str) else
+                          f"bh {k[0]} S {k[1]}"): v
+                         for k, v in times.items() if k != (32, 256)},
         "card": card}]
     rms_record["launches"] = serving_rmsnorm_launches
     kernels += [rms_record] + measured + [dissected]
     for k in kernels:
         k["fleet_launches"] = fleet_launches[k["name"]]
         k["bench_launches"] = bench_launches[k["name"]]
+        k["families_launches"] = families_launches[k["name"]]
+        k["families_phase_launches"] = families_phase_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

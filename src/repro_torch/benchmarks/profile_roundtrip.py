@@ -92,24 +92,20 @@ def _gpu_metrics(ctx: Context) -> list[Metric]:
 
 def _engine_speedup_metric(ctx: Context) -> Metric:
     """Race the full blind structure search, vector vs the batched torch
-    engine (``resolve_engine("auto")``), where the caller named a card.
+    engine (``resolve_engine("auto")``) on the caller's torch device, the
+    CPU included, as the reference races wherever its engine resolves.
 
     Every probe of the search is a cyclic chase that the torch engine
     resolves in closed form on the host, so the race sets the closed
     forms against the vector engine's chunk stepping and launches no
     scan kernel; the detail counts the scan's launches to show it. The
     trace cache is bypassed so both engines pay for real simulation;
-    best-of-2 per engine. Where the caller asked for the CPU the race is
-    not held (the reference's own "nothing to race" info)."""
+    best-of-2 per engine."""
     from repro_torch.core import tracecache
     from repro_torch.kernels import batch_cache
     from repro_torch.profile.pipeline import dissect_structures, resolve_engine
 
     dev = ctx.torch_device
-    if dev.type != "cuda":
-        return info("batched_engine_speedup",
-                    f"torch device {dev}: the race is held where the "
-                    "caller names a card; nothing to race")
     batched = resolve_engine("auto")
     scans = batch_cache.launches
     best: dict[str, float] = {}

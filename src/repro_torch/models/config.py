@@ -2,10 +2,8 @@
 
 A copy of ``repro/models/config.py``'s ``ModelConfig`` with every field,
 so that config files copy over verbatim; only the dtype table maps to
-torch. The port assembles the dense family so far; the other families'
-fields are kept for the configs that are still to be ported (ROADMAP.md).
-Of the JAX package's accounting methods, the parameter counts are copied
-(the cost model prices with them), for the families the port assembles.
+torch. The port assembles every family from it. The JAX package's
+accounting methods are copied (the cost model prices with them).
 """
 
 from __future__ import annotations
@@ -75,7 +73,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     remat: bool = True
     remat_policy: str = "full"      # full | dots (save matmul outputs)
-    attention_impl: str = "ref"     # "ref" | "chunked" (not ported) | "flash" (CUDA)
+    attention_impl: str = "ref"     # "ref" | "chunked" (q blocks) | "flash" (CUDA)
     attention_chunk: int = 1024     # q-block for the chunked impl
     scan_layers: bool = True
     tie_embeddings: bool = False
@@ -142,7 +140,7 @@ class ModelConfig:
                 kinds.append("dense")
         return kinds
 
-    # -- parameter accounting (the cost model's) ---------------------------
+    # -- parameter / FLOP accounting (the cost model's) --------------------
 
     def param_count(self) -> int:
         """Exact parameter count of the assembled model."""
@@ -150,6 +148,10 @@ class ModelConfig:
         return count_params(self)
 
     def active_param_count(self) -> int:
-        """Params touched per token (the dense family: all of them)."""
+        """Params touched per token (MoE: top-k + shared experts only)."""
         from repro_torch.models.transformer import count_params
         return count_params(self, active_only=True)
+
+    def model_flops_per_token(self) -> float:
+        """6·N_active — the §Roofline MODEL_FLOPS convention."""
+        return 6.0 * self.active_param_count()

@@ -1,11 +1,13 @@
-"""Building blocks of the dense GQA transformer, in PyTorch.
+"""Building blocks shared by all 10 architectures, in PyTorch.
 
-Twin of the dense subset of ``repro/models/layers.py``: ``rms_norm``,
-``rotary``, GQA attention with its four cache branches (none, paged,
-per-slot vector, scalar ring), the paged scatter and gather, and the
-SwiGLU FFN. Parameters are plain mappings of tensors, as the JAX package's are
-dicts. Weights keep JAX's ``(in, out)`` layout and multiply as
-``x @ W``, so a converted JAX pytree needs no transpose.
+Twin of ``repro/models/layers.py``: ``rms_norm``, ``rotary``, GQA
+attention with its five cache branches (none, paged, per-slot vector,
+int8 scalar ring, scalar ring) and its chunked variant, the paged scatter
+and gather, MLA (naive and absorbed) over the dense, vector-index and
+paged caches, the SwiGLU FFN and the capacity-buffered top-k MoE.
+Parameters are plain mappings of tensors, as the JAX package's are
+dicts. Weights keep JAX's ``(in, out)`` layout and multiply as ``x @ W``,
+so a converted JAX pytree needs no transpose.
 
 Sharding annotations (``constrain``) have no counterpart yet: the port
 runs on one card (ROADMAP.md, queue 1 item 9).
@@ -13,6 +15,7 @@ runs on one card (ROADMAP.md, queue 1 item 9).
 
 from __future__ import annotations
 
+import math
 from typing import Mapping
 
 import torch
@@ -21,13 +24,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 
-NOT_PORTED = "not ported to PyTorch yet (ROADMAP.md, queue 1 item 7)"
-
 Params = Mapping[str, torch.Tensor]
 
 
-def _init(generator: torch.Generator, shape, scale_dim: int, dtype,
+def _init(generator: torch.Generator | None, shape, scale_dim: int, dtype,
           device) -> torch.Tensor:
+    """f32 normal times ``scale_dim ** -0.5``, cast to ``dtype``; on the
+    ``meta`` device (``generator`` None) only the shape is made."""
     return (torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device) * (scale_dim ** -0.5)).to(dtype)
 
@@ -136,12 +139,17 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, causal: bool,
     if cfg.attention_impl == "flash" and kv_len_mask is None and s == t:
         qf = q.transpose(1, 2).reshape(b * h, s, dh).contiguous()
         kf = k.transpose(1, 2).reshape(b * hkv, t, dh).contiguous()
-        vf = v.transpose(1, 2).reshape(b * hkv, t, dh).contiguous()
+        # v keeps its own width: MLA's (q 192, v 128) reaches the
+        # kernel's shape check, which raises ValueError
+        vf = v.transpose(1, 2).reshape(b * hkv, t, v.shape[-1]).contiguous()
         o = kops.flash_attention(qf, kf, vf, num_q_heads=h, num_kv_heads=hkv,
                                  causal=causal)
         return o.reshape(b, h, s, dh).transpose(1, 2)
-    if cfg.attention_impl == "chunked":
-        raise NotImplementedError(f"attention_impl='chunked' is {NOT_PORTED}")
+    if (cfg.attention_impl == "chunked" and s > cfg.attention_chunk
+            and s % cfg.attention_chunk == 0
+            and (kv_len_mask is None or kv_len_mask.ndim == 2)):
+        return _sdpa_chunked(q, k, v, cfg, causal=causal,
+                             kv_len_mask=kv_len_mask)
     group = h // hkv
     qg = q.reshape(b, s, hkv, group, dh)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
@@ -158,6 +166,41 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, causal: bool,
     return o.reshape(b, s, h, v.shape[-1]).to(q.dtype)
 
 
+def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, causal: bool,
+                  kv_len_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Attention one block of ``attention_chunk`` queries at a time, so
+    the S×S score matrix never materializes: the reference's ``lax.scan``
+    over q blocks as a Python loop (the same math and FLOPs)."""
+    b, s, h, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    bq = cfg.attention_chunk
+    kf, vf = k.float(), v.float()
+    cols = torch.arange(t, device=q.device)[None, :]
+    blocks = []
+    for i in range(s // bq):
+        qi = q[:, i * bq:(i + 1) * bq].reshape(b, bq, hkv, group, dh)
+        scores = torch.einsum("bskgd,btkd->bkgst", qi.float(),
+                              kf) * (dh ** -0.5)
+        if causal:
+            rows = i * bq + torch.arange(bq, device=q.device)
+            scores = torch.where(rows[:, None] >= cols, scores, -1e30)
+        if kv_len_mask is not None:
+            scores = torch.where(kv_len_mask[:, None, None, None, :],
+                                 scores, -1e30)
+        p = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bkgst,btkd->bskgd", p, vf)
+        blocks.append(o.reshape(b, bq, h, v.shape[-1]))
+    return torch.cat(blocks, dim=1).to(q.dtype)
+
+
+def _quant_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per (token, head): values and f32 scales."""
+    s = torch.clamp(x.abs().amax(dim=-1), min=1e-6) / 127.0
+    qx = torch.clamp(torch.round(x / s[..., None]), -127, 127)
+    return qx.to(torch.int8), s.float()
+
+
 def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor,
                     cache: dict | None = None,
@@ -171,7 +214,10 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     one-token decode (S=1) and chunked prefill alike. Otherwise a cache of
     (B, T, Hkv, D) is one decode step, written IN PLACE at
     ``cache_index`` (a (B,) vector of per-slot positions, or one scalar
-    position for the whole batch) and returned."""
+    position for the whole batch) and returned. An int8 cache (with f32
+    ``k_scale``/``v_scale`` of (B, T, Hkv)) is quantized on the scalar
+    branch only: as in the reference, the vector branch comes first and
+    writes int8 leaves as plain values (ROADMAP.md queue 3)."""
     b, s, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
@@ -195,8 +241,19 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         o = _sdpa(q, kg, vg, cfg, causal=False,
                   kv_len_mask=_paged_valid(kg.shape[1], positions))
         new_cache = {"k": ck, "v": cv}
-    elif cache["k"].dtype == torch.int8:
-        raise NotImplementedError(f"the int8 KV cache is {NOT_PORTED}")
+    elif cache["k"].dtype == torch.int8 and not _is_vector(cache_index):
+        # int8-quantized cache (per token×head symmetric scales): halves
+        # the decode memory traffic
+        ck, cv = cache["k"], cache["v"]
+        cks, cvs = cache["k_scale"], cache["v_scale"]
+        sl = slice(cache_index, cache_index + s)
+        ck[:, sl], cks[:, sl] = _quant_int8(k.float())
+        cv[:, sl], cvs[:, sl] = _quant_int8(v.float())
+        kf = (ck.float() * cks[..., None]).to(x.dtype)
+        vf = (cv.float() * cvs[..., None]).to(x.dtype)
+        valid = _decode_valid(ck.shape[1], cache_index, x.device)
+        o = _sdpa(q, kf, vf, cfg, causal=False, kv_len_mask=valid)
+        new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs}
     else:
         ck, cv = cache["k"], cache["v"]
         if _is_vector(cache_index):
@@ -216,28 +273,230 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 # ---------------------------------------------------------------------------
+# MLA (deepseek-v2): low-rank KV with decoupled RoPE; cache = (c_kv, k_rope)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg: ModelConfig, generator: torch.Generator | None,
+             device) -> dict[str, torch.Tensor]:
+    d, h = cfg.d_model, cfg.num_heads
+    nd, rd, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+    pd = cfg.parameter_dtype
+    return {
+        "attn_norm": torch.ones((d,), dtype=pd, device=device),
+        "wq": _init(generator, (d, h * (nd + rd)), d, pd, device),
+        "w_dkv": _init(generator, (d, r + rd), d, pd, device),
+        "kv_norm": torch.ones((r,), dtype=pd, device=device),
+        "w_uk": _init(generator, (r, h * nd), r, pd, device),
+        "w_uv": _init(generator, (r, h * vd), r, pd, device),
+        "wo": _init(generator, (h * vd, d), h * vd, pd, device),
+    }
+
+
+def apply_mla(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, cache: dict | None = None,
+              cache_index: torch.Tensor | int | None = None,
+              page_table: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, dict | None]:
+    """MLA over the same cache branches as :func:`apply_attention`: none,
+    paged (``{"c_kv", "k_rope"}`` pools of (num_pages, page_len, r) and
+    (num_pages, page_len, rd)), per-slot vector and scalar ring, each
+    written IN PLACE. ``cfg.mla_absorbed`` scores against the compressed
+    cache directly whenever there is one."""
+    b, s, d = x.shape
+    h = cfg.num_heads
+    nd, rd, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+    xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q = (xn @ p["wq"]).reshape(b, s, h, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = rotary(q_rope, positions, cfg.rope_theta)
+
+    dkv = xn @ p["w_dkv"]                       # (b, s, r + rd)
+    c_kv = rms_norm(dkv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope = rotary(dkv[..., r:][:, :, None, :], positions,
+                    cfg.rope_theta)[:, :, 0]    # (b, s, rd), shared per head
+
+    paged = cache is not None and page_table is not None
+    valid = None
+    if paged:
+        ckv_pages = _paged_scatter(cache["c_kv"], page_table, positions, c_kv)
+        kr_pages = _paged_scatter(cache["k_rope"], page_table, positions,
+                                  k_rope)
+        new_cache = {"c_kv": ckv_pages, "k_rope": kr_pages}
+        c_kv = _paged_gather(ckv_pages, page_table)
+        k_rope = _paged_gather(kr_pages, page_table)
+        valid = _paged_valid(c_kv.shape[1], positions)
+    elif cache is not None:
+        ckv, kr = cache["c_kv"], cache["k_rope"]
+        if _is_vector(cache_index):     # continuous batching
+            b_idx = torch.arange(b, device=x.device)
+            ckv[b_idx, cache_index] = c_kv[:, 0].to(ckv.dtype)
+            kr[b_idx, cache_index] = k_rope[:, 0].to(kr.dtype)
+        else:
+            ckv[:, cache_index:cache_index + s] = c_kv.to(ckv.dtype)
+            kr[:, cache_index:cache_index + s] = k_rope.to(kr.dtype)
+        c_kv, k_rope = ckv, kr
+    if not paged:
+        new_cache = {"c_kv": c_kv, "k_rope": k_rope}
+        if cache is not None:
+            valid = _decode_valid(c_kv.shape[1], cache_index, x.device)
+    t = c_kv.shape[1]
+
+    if cache is not None and cfg.mla_absorbed:
+        # fold W_uk into the query and W_uv into the output, so attention
+        # runs against the compressed cache (the same math):
+        #   qᵀ(c W_uk) = (q W_ukᵀ)ᵀ c      p (c W_uv) = (p c) W_uv
+        w_uk = p["w_uk"].reshape(r, h, nd).float()
+        w_uv = p["w_uv"].reshape(r, h, vd).float()
+        q_abs = torch.einsum("bshd,rhd->bshr", q_nope.float(), w_uk)
+        scale = (nd + rd) ** -0.5
+        scores = (torch.einsum("bshr,btr->bhst", q_abs, c_kv.float())
+                  + torch.einsum("bshd,btd->bhst", q_rope.float(),
+                                 k_rope.float())) * scale
+        vm = (valid[:, None, None, :] if valid.ndim == 2
+              else valid[:, None])      # (B,1,S,T) per-query paged mask
+        scores = torch.where(vm, scores, -1e30)
+        pr = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", pr, c_kv.float())
+        o = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
+        o = o.reshape(b, s, h * vd).to(x.dtype)
+        return x + (o @ p["wo"]).to(x.dtype), new_cache
+
+    # naive MLA: expand the compressed cache to per-head K/V
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, t, h, nd)
+    vfull = (c_kv @ p["w_uv"]).reshape(b, t, h, vd)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, rd)],
+                       dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    if cache is None:
+        o = _sdpa(q_full, k_full, vfull, cfg, causal=True)
+    else:
+        o = _sdpa(q_full, k_full, vfull, cfg, causal=False, kv_len_mask=valid)
+    o = o.reshape(b, s, h * vd)
+    return x + (o @ p["wo"]).to(x.dtype), new_cache
+
+
+# ---------------------------------------------------------------------------
 # dense FFN (SwiGLU)
 # ---------------------------------------------------------------------------
 
 
-def init_ffn(cfg: ModelConfig, generator: torch.Generator,
-             device) -> dict[str, torch.Tensor]:
-    d, f = cfg.d_model, cfg.d_ff
+def init_ffn(cfg: ModelConfig, generator: torch.Generator | None, device,
+             d_ff: int | None = None, prefix: str = ""
+             ) -> dict[str, torch.Tensor]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     pd = cfg.parameter_dtype
-    return {
-        "w_gate": _init(generator, (d, f), d, pd, device),
-        "w_up": _init(generator, (d, f), d, pd, device),
-        "w_down": _init(generator, (f, d), f, pd, device),
-        "ffn_norm": torch.ones((d,), dtype=pd, device=device),
+    out = {
+        prefix + "w_gate": _init(generator, (d, f), d, pd, device),
+        prefix + "w_up": _init(generator, (d, f), d, pd, device),
+        prefix + "w_down": _init(generator, (f, d), f, pd, device),
     }
+    if not prefix:
+        out["ffn_norm"] = torch.ones((d,), dtype=pd, device=device)
+    return out
 
 
-def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return (h @ p["w_down"]).to(x.dtype)
+def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              prefix: str = "") -> torch.Tensor:
+    h = F.silu(x @ p[prefix + "w_gate"]) * (x @ p[prefix + "w_up"])
+    return (h @ p[prefix + "w_down"]).to(x.dtype)
 
 
 def apply_dense_block(p: Params, x: torch.Tensor, cfg: ModelConfig
                       ) -> torch.Tensor:
     xn = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     return x + apply_ffn(p, xn, cfg)
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k token choice, capacity buffers
+# ---------------------------------------------------------------------------
+
+
+def init_moe(cfg: ModelConfig, generator: torch.Generator | None,
+             device) -> dict[str, torch.Tensor]:
+    d, e, fe = cfg.d_model, cfg.num_experts, cfg.d_ff_expert
+    pd = cfg.parameter_dtype
+    out = {
+        "ffn_norm": torch.ones((d,), dtype=pd, device=device),
+        "router": _init(generator, (d, e), d, torch.float32, device),
+        "moe_gate": _init(generator, (e, d, fe), d, pd, device),
+        "moe_up": _init(generator, (e, d, fe), d, pd, device),
+        "moe_down": _init(generator, (e, fe, d), fe, pd, device),
+    }
+    if cfg.num_shared_experts:
+        out.update(init_ffn(cfg, generator, device,
+                            d_ff=cfg.num_shared_experts * fe,
+                            prefix="shared_"))
+    return out
+
+
+def moe_capacity(tokens: int, cfg: ModelConfig) -> int:
+    cap = math.ceil(tokens * cfg.top_k / cfg.num_experts * cfg.capacity_factor)
+    return max(8, -(-cap // 8) * 8)   # round up to 8 for tiling
+
+
+def apply_moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (residual_out, router_aux_loss).
+
+    Each token's top-k experts (ties to the lower index, as
+    ``jax.lax.top_k``: a stable descending sort) take it into a buffer of
+    ``moe_capacity`` rows per expert, in token order; a choice past its
+    expert's capacity is dropped. Dropped choices are clamped into the
+    buffer and masked, where JAX's gather clamps by itself (a CUDA index
+    out of range is a device assert)."""
+    b, s, d = x.shape
+    xn = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    t = b * s
+    xt = xn.reshape(t, d)
+    e, k = cfg.num_experts, cfg.top_k
+    dev = x.device
+
+    logits = xt.float() @ p["router"]                        # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[:, :k], top_i[:, :k]                # (T, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balance aux (Switch-style) + router z-loss
+    flat_e = top_i.reshape(-1)                               # (T·k,)
+    # per-expert counts by index_add_, not bincount (whose CUDA version
+    # reads the maximum back to the host, a sync per layer)
+    counts = torch.zeros((e,), dtype=torch.long, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    me = probs.mean(dim=0)
+    ce = counts.float() / (t * k)
+    aux = e * torch.sum(me * ce) + cfg.router_z_coef * torch.mean(
+        torch.logsumexp(logits, dim=-1) ** 2)
+
+    # capacity dispatch: rank of each (token, choice) within its expert
+    cap = moe_capacity(t, cfg)
+    order = torch.argsort(flat_e, stable=True)
+    starts = torch.cumsum(counts, 0) - counts
+    ranks_sorted = torch.arange(t * k, device=dev) - starts[flat_e[order]]
+    slot = torch.empty_like(ranks_sorted)
+    slot[order] = ranks_sorted
+    keep = slot < cap
+    tok = torch.arange(t * k, device=dev) // k
+
+    # dropped choices add zeros at (e-1, cap-1), as in the reference
+    buf = torch.zeros((e, cap, d), dtype=xt.dtype, device=dev)
+    buf.index_put_((torch.where(keep, flat_e, e - 1),
+                    torch.where(keep, slot, cap - 1)),
+                   torch.where(keep[:, None], xt[tok], 0), accumulate=True)
+
+    h = F.silu(torch.bmm(buf, p["moe_gate"])) * torch.bmm(buf, p["moe_up"])
+    out_buf = torch.bmm(h, p["moe_down"])                    # (E, cap, d)
+
+    gathered = out_buf[flat_e, torch.clamp(slot, max=cap - 1)]   # (T·k, d)
+    gathered = torch.where(keep[:, None], gathered, 0)
+    # the k choices of a token are adjacent rows: sum them in order
+    y = (gathered * top_p.reshape(-1)[:, None].to(xt.dtype)
+         ).reshape(t, k, d).sum(dim=1)
+
+    if cfg.num_shared_experts:
+        y = y + apply_ffn(p, xt, cfg, prefix="shared_")
+    return x + y.reshape(b, s, d).to(x.dtype), aux

@@ -100,7 +100,8 @@ class ServeEngine:
             logits, pcache = T.prefill(self.params, self.cfg,
                                        {"tokens": toks}, max_len=self.max_len)
             # copy the prefilled slot into its row of the batched cache
-            # (axis 1 is the slot axis of every leaf), in place
+            # (axis 1 is the slot axis of every leaf, the SSM's included),
+            # in place
             for name, leaf in self.cache.items():
                 leaf[:, slot] = pcache[name][:, 0]
             tok = int(self.sampler(logits[0, -1]))
@@ -525,9 +526,10 @@ class PagedServeEngine:
     def export_pages(self, uid: int) -> tuple[Request, dict]:
         """Extract a READY request (prefill complete, held for handoff)
         and its KV as a token-major host payload; the source side is
-        copy-free like :meth:`evacuate`. The payload's leaves are
-        ``(layers, tokens, Hkv, D)`` CPU tensors, so a destination with a
-        different ``page_len`` can take them."""
+        copy-free like :meth:`evacuate`. The payload's paged leaves are
+        ``(layers, tokens, ...)`` CPU tensors, so a destination with a
+        different ``page_len`` can take them; slot-resident (SSM) leaves
+        ride along as their one row, ``(layers, ...)``."""
         req = next((r for r in self.ready if r.uid == uid), None)
         assert req is not None, f"uid {uid} is not ready for export"
         slot = req.slot
@@ -535,8 +537,10 @@ class PagedServeEngine:
         pages = self.alloc.pages.get(uid, [])
         idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
 
-        def one(leaf):
-            rows = leaf[:, idx]            # (layers, n, page_len, Hkv, D)
+        def one(name, leaf):
+            if name not in T.PAGED_LEAVES:
+                return leaf[:, slot].cpu()
+            rows = leaf[:, idx]            # (layers, n, page_len, ...)
             flat = rows.reshape((rows.shape[0], len(pages) * self.page_len)
                                 + tuple(rows.shape[3:]))
             return flat[:, :tokens].cpu()
@@ -546,7 +550,8 @@ class PagedServeEngine:
             "pages": len(pages),
             "page_len": self.page_len,
             "last_token": int(self.last_tokens[slot]),
-            "leaves": {name: one(leaf) for name, leaf in self.cache.items()},
+            "leaves": {name: one(name, leaf)
+                       for name, leaf in self.cache.items()},
         }
         self.alloc.release(uid)
         self.page_tables[slot][:] = 0
@@ -578,6 +583,9 @@ class PagedServeEngine:
         idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
         for name, leaf in self.cache.items():
             row = payload["leaves"][name]
+            if name not in T.PAGED_LEAVES:
+                leaf[:, slot] = row.to(device=self.device, dtype=leaf.dtype)
+                continue
             buf = torch.zeros((row.shape[0], len(pages) * self.page_len)
                               + tuple(row.shape[2:]), dtype=leaf.dtype)
             buf[:, :tokens] = row

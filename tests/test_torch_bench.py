@@ -170,14 +170,18 @@ def test_full_mode_kernel_record_matches_the_reference(name):
         assert "on cpu by the plain version" in got["host_memcpy_gbps"].detail
 
 
-def test_speedup_race_has_nothing_to_race_on_the_cpu():
+def test_speedup_race_runs_on_the_cpu():
+    """The race runs on the CPU too, as the reference races wherever its
+    engine resolves: the reference's name, comparison and limit, and a
+    positive ratio. Its verdict is timing under a loaded host, so it is
+    not asserted."""
     from repro_torch.benchmarks import profile_roundtrip
     ctx = Context(device=devices.get_device("GTX980"),
                   torch_device=torch.device("cpu"))
     m = profile_roundtrip._engine_speedup_metric(ctx)
-    assert (m.name, m.cmp, m.verdict) == ("batched_engine_speedup", "info",
-                                          INFO)
-    assert "nothing to race" in m.measured
+    assert (m.name, m.cmp, m.expected) == ("batched_engine_speedup", "ge", 10)
+    assert m.measured > 0 and m.us > 0
+    assert "0 scan launches on cpu" in m.detail
 
 
 # -- the harness itself -------------------------------------------------------

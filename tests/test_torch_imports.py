@@ -62,7 +62,10 @@ def test_guard_sees_the_whole_port():
             "fig12_throughput.py", "table7_shared_bw.py",
             "table8_bank_conflict.py", "profile_roundtrip.py",
             "serve_paging.py", "serve_fleet.py", "serve_workload.py",
-            "serve_tiers.py", "serve_faults.py"} <= names
+            "serve_tiers.py", "serve_faults.py", "ssm.py", "shapes.py",
+            "deepseek_v2_lite_16b.py", "phi35_moe_42b.py", "mamba2_1p3b.py",
+            "hubert_xlarge.py", "internvl2_2b.py",
+            "jamba_1p5_large_398b.py"} <= names
 
 
 def test_kernel_entry_points_import_lazily():

@@ -10,9 +10,12 @@ port makes is also checked to index inside its page table: on a card an
 index out of range is a device assert, where JAX would clamp or drop.
 The allocator is held to the reference's case by case, and the KV
 handoff (``export_pages``/``import_pages``) and ``evacuate`` give the
-same requests and books.
+same requests and books. The other cache families (mamba2's
+slot-resident SSM rows, deepseek-v2-lite's MLA pools, jamba's mix) run
+the roomy and tight schedules in lockstep too, MoE capacity lifted.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -29,7 +32,7 @@ from repro_torch import configs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import cache_from_jax, params_from_jax
 from repro_torch.serve import paging
 from repro_torch.serve.engine import PagedServeEngine, Request
 
@@ -166,6 +169,73 @@ def test_paged_engine_matches_reference_in_lockstep(setup, name,
     if name == "preemption":
         assert eng.preemptions > 0, "pool was sized to force preemption"
     assert eng.max_slack_tokens <= eng.prefill_chunk
+
+
+#: one arch of each cache family beside granite's GQA, as
+#: tests/test_serve_paged_equiv.py: pure SSM, MLA + MoE, hybrid
+FAMILIES = ("mamba2-1.3b", "deepseek-v2-lite-16b", "jamba-1.5-large-398b")
+_FAMILY_SETUPS: dict = {}
+
+
+def _family_setup(arch):
+    """Smoke config, MoE capacity lifted to ``num_experts`` (garbage rows
+    share expert capacity; test_serve_paged_equiv.py:35-39)."""
+    if arch not in _FAMILY_SETUPS:
+        out = []
+        for cfg in (jconfigs.get_smoke_config(arch),
+                    configs.get_smoke_config(arch)):
+            if cfg.is_moe:
+                cfg = dataclasses.replace(
+                    cfg, capacity_factor=float(cfg.num_experts))
+            out.append(cfg)
+        jcfg, cfg = out
+        jparams = JT.init_params(jcfg, jax.random.key(0))
+        _FAMILY_SETUPS[arch] = (jcfg, jparams, cfg, params_from_jax(
+            jax.tree.map(np.asarray, jparams), cfg))
+    return _FAMILY_SETUPS[arch]
+
+
+@pytest.mark.parametrize("name", ["roomy", "tight"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_paged_engine_matches_reference_in_lockstep(arch, name):
+    """The SSM's slot-resident rows, MLA's compressed pools and jamba's
+    mix, stepped beside the reference's engine: books every tick, then
+    tokens and stats."""
+    setup = _family_setup(arch)
+    kw, work = SCHEDULES[name]
+    jeng, eng = _pair(setup, **kw)
+    _submit(setup, jeng, eng, work)
+    assert len(_lockstep(jeng, eng)) == len(work)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_family_handoff_carries_the_slot_resident_rows(arch):
+    """export_pages/import_pages with SSM leaves: the payload's conv and
+    state rows equal the reference's, and the handed-off requests decode
+    to the reference's tokens."""
+    setup = _family_setup(arch)
+    jsrc, src = _pair(setup, max_slots=2, max_len=48, page_len=8,
+                      hold_after_prefill=True)
+    jdst, dst = _pair(setup, max_slots=len(WORK), max_len=48, page_len=4)
+    _submit(setup, jsrc, src)
+    cfg = setup[2]
+    while jsrc.waiting or jsrc.prefilling or jsrc.ready:
+        jsrc.step()
+        src.step()
+        assert _books(src) == _books(jsrc)
+        for jr in list(jsrc.ready):
+            jr, jpay = jsrc.export_pages(jr.uid)
+            r, pay = src.export_pages(jr.uid)
+            want = cache_from_jax(jpay["leaves"], cfg)
+            assert set(pay["leaves"]) == set(want)
+            for leaf, rows in want.items():
+                np.testing.assert_allclose(
+                    pay["leaves"][leaf].float().numpy(), rows.float().numpy(),
+                    atol=1e-4, rtol=1e-4)
+            assert dst.import_pages(r, pay) and jdst.import_pages(jr, jpay)
+            assert _books(dst) == _books(jdst)
+    _lockstep(jdst, dst)
+    assert dst.imports == len(WORK)
 
 
 def test_oldest_request_is_never_preempted(setup):
