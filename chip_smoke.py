@@ -128,6 +128,28 @@ non-zero. Phases:
            to 0 just before each) and, apart, over the whole phase with
            its checks. Flash at the two new shapes is checked and timed
            with the other flash shapes
+  train    training through the port's entry points: granite-8b at full
+           width cut to 16 of 36 layers (3.89 B parameters, bf16 with f32
+           AdamW moments, remat "full") taking 20 in-place steps of
+           make_train_step through run_training on SyntheticLM at the
+           launcher's batch 8 x 128, lr 1e-3 on the cosine schedule, every
+           loss and grad norm finite and the loss falling (mean of the
+           last 5 below the first 5's), step ms on the host clock, tok/s,
+           peak memory and one warm step under torch.profiler;
+           mamba2-1.3b whole (48 layers) through python -m
+           repro_torch.launch.train, every logged loss finite, and two
+           runs of 3 steps from one initial state equal bit for bit;
+           float32 against float64 on the same weights at full width and
+           2 layers (granite-8b, deepseek-v2-lite-16b with MoE capacity
+           lifted, mamba2-1.3b): loss and aux within 1e-5 relative, every
+           gradient within 1e-4 of its leaf's max, one AdamW update
+           within 1e-5; the launcher at --smoke preempted at step 7 of
+           12 and resumed, its last checkpoint equal bit for bit to an
+           uninterrupted run's; examples/torch_quickstart.py --preset
+           100m, which exits 0 only if its loss drops; flash under grad
+           raising RuntimeError in bf16 and float32. No kernel launches
+           (the reference trains on the plain attention, and flash has
+           no backward); the kernels line's train_launches says so
 
 Then one line ``{"kernels": [...]}``, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -138,6 +160,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1652,6 +1675,376 @@ def families_phase(torch, dev, card: str, size: dict = FAMILIES_SIZE,
     return path, phase
 
 
+#: the train phase at full width on the card: granite-8b cut to 16 of 36
+#: layers (8.25 B parameters whole, 99 GB of bf16 parameters and
+#: gradients and f32 moments; 16 layers are 3.89 B, 46.7 GB) at the
+#: launcher's batch 8 x 128; mamba2-1.3b whole through the launcher and
+#: twice 3 steps for determinism; float32 against float64 at 2 layers;
+#: the launcher's preempt and resume at --smoke; the quickstart twin
+TRAIN_SIZE = dict(granite_layers=16, steps=20, batch=8, seq=128, lr=1e-3,
+                  launcher=["--arch", "mamba2-1.3b", "--steps", "10",
+                            "--log-every", "1"],
+                  determinism_arch="mamba2-1.3b", determinism_steps=3,
+                  f64_layers=2, f64_batch=2, f64_seq=64,
+                  resume=["--arch", "granite-8b", "--smoke", "--steps", "12",
+                          "--ckpt-every", "3", "--log-every", "3"],
+                  preempt_at=7, quickstart=["--preset", "100m"],
+                  timeout_s=600)
+#: float32 against float64 on the same weights: loss and aux (relative),
+#: every gradient leaf (of that leaf's max |g|), one AdamW update
+F64_LOSS_REL_TOL = 1e-5
+F64_GRAD_TOL = 1e-4
+F64_UPDATE_TOL = 1e-5
+TRAIN_STEP_LINE = re.compile(
+    r"^step +(\d+) loss=(\S+) ce=(\S+) gnorm=(\S+) tok/s=([\d,]+) "
+    r"stragglers=(\d+)$")
+QUICKSTART_LINE = re.compile(r"^ +step +(\d+) +ce=(\S+) +\(([\d,]+) tok/s\)$")
+
+
+def loss_falls(losses: list[float], n: int = 5) -> bool:
+    """The mean of the last ``n`` losses below the mean of the first
+    ``n`` (tests/test_training.py:148-154's criterion)."""
+    return (len(losses) >= 2 * n
+            and sum(losses[-n:]) / n < sum(losses[:n]) / n)
+
+
+def parse_train_log(text: str) -> dict:
+    """The launcher's lines: its ``arch=`` header, each ``step`` line's
+    numbers and whether a ``done:`` line ended it."""
+    head = re.search(r"^arch=(\S+) params=([\d,]+) devices=(\d+)$", text,
+                     re.M)
+    steps = [{"step": int(m[1]), "loss": float(m[2]), "ce": float(m[3]),
+              "gnorm": float(m[4]), "tok_s": int(m[5].replace(",", "")),
+              "stragglers": int(m[6])}
+             for m in map(TRAIN_STEP_LINE.match, text.splitlines()) if m]
+    return {"arch": head and head[1],
+            "params": head and int(head[2].replace(",", "")),
+            "steps": steps,
+            "done": bool(re.search(r"^done: \d+ steps in ", text, re.M))}
+
+
+def parse_quickstart_log(text: str) -> dict:
+    rows = [m for m in map(QUICKSTART_LINE.match, text.splitlines()) if m]
+    done = re.search(r"^done in \S+: ce (\S+) -> (\S+) ", text, re.M)
+    return {"steps": [int(m[1]) for m in rows],
+            "ce": [float(m[2]) for m in rows],
+            "tok_s": [int(m[3].replace(",", "")) for m in rows],
+            "first_last_ce": done and [float(done[1]), float(done[2])]}
+
+
+def finite(xs) -> bool:
+    return bool(xs) and all(math.isfinite(x) for x in xs)
+
+
+def add_phase_launches(kernels: list[dict], phases: dict[str, dict]) -> None:
+    """Each kernel record gains one field a phase: that phase's launches
+    of the kernel (``{field: {kernel name: launches}}``)."""
+    for k in kernels:
+        for field, counts in phases.items():
+            k[field] = counts[k["name"]]
+
+
+def train_phase(torch, dev, card: str, size: dict = TRAIN_SIZE,
+                get_config=None) -> dict:
+    """Training through the port's entry points: granite-8b at full width
+    (cut in depth, ``size["granite_layers"]``) taking ``steps`` in-place
+    AdamW steps through ``run_training`` with a falling loss, one warm
+    step profiled; mamba2-1.3b whole through ``python -m
+    repro_torch.launch.train`` and bit-equal over two runs of 3 steps from
+    one initial state; float32 against float64 (granite, deepseek with
+    MoE capacity lifted, mamba2) on loss, aux, every gradient and one
+    AdamW update; the launcher's preempt-and-resume against an
+    uninterrupted run, bit for bit; the quickstart twin; flash refusing
+    grad. Returns each kernel's launches on the phase's runs (every count
+    set to 0 just before each and read just after), all 0 by design."""
+    import gc
+    import importlib
+    import os
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import (AdamWConfig, adamw_update, cosine_schedule,
+                                   global_norm)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import StepWatchdog, run_training
+    from repro_torch.train.loop import init_state, loss_fn, make_train_step
+
+    get_config = get_config or configs.get_config
+    mods = {n: importlib.import_module(f"repro_torch.kernels.{n}")
+            for n in KERNELS}
+    path = dict.fromkeys(mods, 0)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "repro_torch" / "train"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def release():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def on_path(fn, *a, **kw):
+        """One run of the phase, every count set to 0 just before it and
+        read just after (added to the phase's launches)."""
+        for m in mods.values():
+            m.launches = 0
+        res = fn(*a, **kw)
+        sync()
+        for n, m in mods.items():
+            path[n] += m.launches
+            m.launches = 0
+        return res
+
+    def run(argv, name):
+        """A subprocess from the checkout's root: (exit code, stdout)."""
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, *argv], env=env, cwd=ROOT,
+                           capture_output=True, text=True,
+                           timeout=size["timeout_s"])
+        (work / f"{name}.log").write_text(p.stdout + p.stderr)
+        return p.returncode, p.stdout, time.perf_counter() - t0
+
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+
+    # -- 1. granite-8b at full width, cut in depth ------------------------------
+    release()
+    cfg = dataclasses.replace(get_config("granite-8b"),
+                              num_layers=size["granite_layers"])
+    opt = AdamWConfig(lr=size["lr"])
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, gen(0), dev)
+    sync()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    record("train", step="init", arch=cfg.name, layers=cfg.num_layers,
+           d_model=cfg.d_model, params=n_params, dtype=cfg.param_dtype,
+           moments=opt.moment_dtype, remat=cfg.remat_policy if cfg.remat
+           else None, seconds=time.perf_counter() - t0,
+           memory_allocated=torch.cuda.memory_allocated() if on_card
+           else None)
+    steps, b, s = size["steps"], size["batch"], size["seq"]
+    step = make_train_step(cfg, opt, lr_fn=cosine_schedule(
+        size["lr"], warmup=max(1, steps // 20), total=steps), in_place=True)
+    data = SyntheticLM(cfg.vocab_size, s, b, seed=1)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()}
+
+    wd, hist = StepWatchdog(), []
+    on_path(run_training, state, step, batch_at, num_steps=steps,
+            watchdog=wd, on_metrics=lambda i, m: hist.append(
+                (float(m["loss"]), float(m["grad_norm"]),
+                 wd.last_duration)))
+    losses = [h[0] for h in hist]
+    step_ms = sorted(h[2] * 1e3 for h in hist[1:])
+    med = step_ms[len(step_ms) // 2]
+    rec = dict(steps=steps, batch=b, seq=s, first_loss=losses[0],
+               last_loss=losses[-1], losses=losses,
+               grad_norms=[h[1] for h in hist],
+               first_step_ms=hist[0][2] * 1e3, median_step_ms=med,
+               min_step_ms=step_ms[0], tokens_per_s=b * s / med * 1e3,
+               stragglers=wd.stragglers,
+               max_memory_allocated=torch.cuda.max_memory_allocated()
+               if on_card else None, card=card)
+    if on_card:
+        nxt = [steps]
+
+        def one_step():
+            on_path(step, state, batch_at(nxt[0]))
+            nxt[0] += 1
+        rec["profile"] = device_busy(torch, one_step,
+                                     work / "trace_train_step.json")
+    record("train", step="granite", arch=cfg.name, layers=cfg.num_layers,
+           **rec)
+    check(finite(losses) and finite(rec["grad_norms"]),
+          f"granite training: a loss or grad norm is not finite: {hist}")
+    check(loss_falls(losses), f"granite training: the loss did not fall "
+          f"(first 5 {losses[:5]}, last 5 {losses[-5:]})")
+    del state, step
+    release()
+
+    # -- 2. mamba2-1.3b through the launcher; determinism in process -------------
+    device_arg = ["--device", dev.type]
+    rc, out, secs = run(["-m", "repro_torch.launch.train",
+                         *size["launcher"], *device_arg], "launcher")
+    log = parse_train_log(out)
+    want_steps = int(size["launcher"][size["launcher"].index("--steps") + 1])
+    record("train", step="launcher", argv=size["launcher"], exit_code=rc,
+           seconds=secs, **log)
+    check(rc == 0 and log["done"] and len(log["steps"]) == want_steps
+          and finite([r["loss"] for r in log["steps"]]),
+          f"the launcher's run: exit {rc}, {log}")
+
+    cfg = get_config(size["determinism_arch"])
+    state0 = init_state(cfg, opt, gen(0), dev)
+    step = make_train_step(cfg, opt, lr_fn=cosine_schedule(
+        size["lr"], warmup=1, total=size["determinism_steps"]),
+        in_place=True)
+    data = SyntheticLM(cfg.vocab_size, s, b, seed=1)
+    runs = []
+    for state in (state0.clone(), state0):
+        on_path(run_training, state, step, batch_at,
+                num_steps=size["determinism_steps"])
+        runs.append(dict(ckpt.leaves(state)))
+    a, bb = runs
+    differ = [k for k in a if not torch.equal(a[k], bb[k])]
+    record("train", step="determinism", arch=cfg.name, layers=cfg.num_layers,
+           params=sum(p.numel() for p in state0.params.parameters()),
+           steps=size["determinism_steps"], leaves=len(a),
+           leaves_differing=len(differ), first_differing=differ[:5],
+           max_memory_allocated=torch.cuda.max_memory_allocated()
+           if on_card else None)
+    check(not differ, f"{cfg.name}: two runs from one state differ in "
+          f"{len(differ)} leaves, e.g. {differ[:5]}")
+    del state0, state, runs, a, bb, step
+    release()
+
+    # -- 3. float32 against float64 on the same weights ---------------------------
+    for arch in ("granite-8b", "deepseek-v2-lite-16b", "mamba2-1.3b"):
+        c32 = dataclasses.replace(get_config(arch),
+                                  num_layers=size["f64_layers"],
+                                  dtype="float32", param_dtype="float32")
+        if c32.is_moe:
+            c32 = dataclasses.replace(c32, capacity_factor=float(
+                c32.num_experts))
+        c64 = dataclasses.replace(c32, dtype="float64", param_dtype="float64")
+        p32 = T.init_params(c32, gen(0), dev).requires_grad_(True)
+        p64 = T.from_named(c64, {k: p.detach().double() for k, p in
+                                 p32.named_parameters()}
+                           ).requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+            c32.vocab_size, size["f64_seq"], size["f64_batch"],
+            seed=1).batch(0).items()}
+        def loss_and_grads(p, c):
+            names, leaves = zip(*p.named_parameters())
+            total, m = loss_fn(p, c, batch)
+            return m, dict(zip(names, torch.autograd.grad(total, leaves)))
+
+        out = {label: on_path(loss_and_grads, p, c)
+               for label, c, p in (("f32", c32, p32), ("f64", c64, p64))}
+        (m32, g32), (m64, g64) = out.pop("f32"), out.pop("f64")
+        rel = lambda a, b: abs(float(a) - float(b)) / max(abs(float(b)),
+                                                          1e-30)
+        loss_rel = rel(m32["loss"], m64["loss"])
+        aux_rel = rel(m32["aux"], m64["aux"]) if c32.is_moe else 0.0
+        grad_err = max(float((g32[k].double() - g).abs().max()) /
+                       max(float(g.abs().max()), 1e-30)
+                       for k, g in g64.items())
+        del g32
+        # one AdamW update of each model on the float64 gradients, leaf
+        # by leaf (both models' moments at once would not fit beside
+        # them): the gradients pre-scaled by the global-norm clip, the
+        # update's own clip then idle
+        scale = min(1.0, opt.clip_norm / max(float(global_norm(g64)), 1e-9))
+        opt1 = AdamWConfig(lr=size["lr"], clip_norm=math.inf)
+        named = {label: {k: t.detach() for k, t in p.named_parameters()}
+                 for label, p in (("f32", p32), ("f64", p64))}
+        update_err = 0.0
+        for k, g in g64.items():
+            new = {}
+            for label, dt in (("f32", torch.float32), ("f64", torch.float64)):
+                t = named[label][k]
+                st = {"m": {k: torch.zeros_like(t)},
+                      "v": {k: torch.zeros_like(t)},
+                      "count": torch.zeros((), dtype=torch.int32,
+                                           device=dev)}
+                new[label] = adamw_update({k: (g * scale).to(dt)}, st,
+                                          {k: t}, opt1, size["lr"])[0][k]
+            update_err = max(update_err, float(
+                (new["f32"].double() - new["f64"]).abs().max()))
+            del new
+        record("train", step="f32_vs_f64", arch=arch,
+               layers=c32.num_layers, d_model=c32.d_model,
+               params=sum(t.numel() for t in p32.parameters()),
+               loss_f32=float(m32["loss"]), loss_f64=float(m64["loss"]),
+               loss_rel=loss_rel, aux_f32=float(m32["aux"]),
+               aux_f64=float(m64["aux"]), aux_rel=aux_rel,
+               worst_grad_err_of_max=grad_err, update_max_abs=update_err,
+               tol_loss_rel=F64_LOSS_REL_TOL, tol_grad=F64_GRAD_TOL,
+               tol_update=F64_UPDATE_TOL)
+        check(loss_rel <= F64_LOSS_REL_TOL and aux_rel <= F64_LOSS_REL_TOL,
+              f"{arch}: f32 vs f64 loss {loss_rel}, aux {aux_rel}")
+        check(grad_err <= F64_GRAD_TOL,
+              f"{arch}: f32 vs f64 gradient {grad_err} of its max")
+        check(update_err <= F64_UPDATE_TOL,
+              f"{arch}: f32 vs f64 AdamW update {update_err}")
+        del p32, p64, out, g64, named
+        release()
+
+    # -- 4. preempt and resume through the launcher --------------------------------
+    whole, cut = work / "ckpt_whole", work / "ckpt_cut"
+    base = ["-m", "repro_torch.launch.train", *size["resume"], *device_arg]
+    rcs = [run(base + ["--ckpt-dir", str(whole)], "resume_whole")[0],
+           run(base + ["--ckpt-dir", str(cut), "--preempt-at",
+                       str(size["preempt_at"])], "resume_cut")[0]]
+    cut_steps = ckpt.all_steps(str(cut))
+    rcs.append(run(base + ["--ckpt-dir", str(cut)], "resume_rest")[0])
+    last = ckpt.latest_step(str(whole))
+    same = last is not None and last == ckpt.latest_step(str(cut))
+    differ = []
+    if same:
+        with np.load(whole / f"step-{last:08d}.npz") as za, \
+                np.load(cut / f"step-{last:08d}.npz") as zb:
+            same = sorted(za.files) == sorted(zb.files)
+            differ = [k for k in za.files if k in zb.files and
+                      za[k].tobytes() != zb[k].tobytes()]
+    record("train", step="resume", argv=size["resume"],
+           preempt_at=size["preempt_at"], exit_codes=rcs,
+           steps_before_resume=cut_steps, final_step=last,
+           leaves_differing=len(differ))
+    check(rcs[0] == 0 and rcs[1] != 0 and rcs[2] == 0,
+          f"preempt and resume: exit codes {rcs}")
+    check(same and not differ, f"the resumed run's final checkpoint differs "
+          f"from the uninterrupted one's: {differ[:5]}")
+
+    # -- 5. the quickstart twin ------------------------------------------------------
+    rc, out, secs = run([str(ROOT / "examples" / "torch_quickstart.py"),
+                         *size["quickstart"], *device_arg], "quickstart")
+    q = parse_quickstart_log(out)
+    rates = sorted(q["tok_s"])
+    record("train", step="quickstart", argv=size["quickstart"], exit_code=rc,
+           seconds=secs, first_last_ce=q["first_last_ce"],
+           median_tokens_per_s=rates[len(rates) // 2] if rates else None,
+           card=card)
+    check(rc == 0 and q["first_last_ce"] is not None,
+          f"the quickstart twin exited {rc}")
+
+    # -- 6. flash refuses grad ----------------------------------------------------------
+    raised = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q_ = torch.randn((8, 128, 64), device=dev, generator=gen(1)).to(dt)
+        k_ = torch.randn((2, 128, 64), device=dev, generator=gen(2)).to(dt)
+        before = fa.launches
+        try:
+            fa.flash_attention(q_.requires_grad_(True), k_, k_,
+                               num_q_heads=4, num_kv_heads=1)
+            raised[str(dt)] = False
+        except RuntimeError as e:
+            raised[str(dt)] = "no backward" in str(e)
+        raised[str(dt)] &= fa.launches == before
+    record("train", step="flash_under_grad", raised=raised)
+    check(all(raised.values()), f"flash under grad did not raise: {raised}")
+
+    record("train", step="launches", launches=path,
+           seconds=time.perf_counter() - t_phase, card=card)
+    check(not any(path.values()), f"the train phase launched {path}: "
+          "training runs no kernel of the port")
+    return path
+
+
 def measurement(torch, dev, card: str) -> list[dict]:
     """The paper's measurement path: check each kernel against its plain
     version, time it, then drive the path end to end with the launch
@@ -2521,6 +2914,8 @@ def main() -> int:
     bench_launches = bench_phase(card)
     families_launches, families_phase_launches = families_phase(
         torch, dev, card)
+    torch.cuda.empty_cache()
+    train_launches = train_phase(torch, dev, card)
 
     t = times[(32, 256)]
     kernels = [{
@@ -2541,11 +2936,11 @@ def main() -> int:
         "card": card}]
     rms_record["launches"] = serving_rmsnorm_launches
     kernels += [rms_record] + measured + [dissected]
-    for k in kernels:
-        k["fleet_launches"] = fleet_launches[k["name"]]
-        k["bench_launches"] = bench_launches[k["name"]]
-        k["families_launches"] = families_launches[k["name"]]
-        k["families_phase_launches"] = families_phase_launches[k["name"]]
+    add_phase_launches(kernels, {
+        "fleet_launches": fleet_launches, "bench_launches": bench_launches,
+        "families_launches": families_launches,
+        "families_phase_launches": families_phase_launches,
+        "train_launches": train_launches})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -141,8 +141,18 @@ def flash_attention(q, k, v, *, num_q_heads: int, num_kv_heads: int,
 
     ``block_q``/``block_k`` keep the Pallas kernel's contract: clamped to
     the sequence lengths, they must divide them or ``ValueError`` is
-    raised, on every device. The CUDA kernels tile by their own 64 rows."""
+    raised, on every device. The CUDA kernels tile by their own 64 rows.
+
+    There is no backward kernel (the reference's Pallas kernel has no
+    ``custom_vjp`` either): under grad mode, an input that requires grad
+    raises ``RuntimeError`` on every device, where the kernel's output
+    would carry no ``grad_fn`` and cut attention out of the gradient."""
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: it cannot take inputs that "
+            "require grad under grad mode; train with attention_impl="
+            "'ref' or 'chunked', or call it under torch.no_grad()")
     bh, sq, d = q.shape
     bhkv, sk, _ = k.shape
     if num_q_heads % num_kv_heads or bh % num_q_heads:

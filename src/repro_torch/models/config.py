@@ -12,7 +12,8 @@ import dataclasses
 
 import torch
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -65,3 +65,27 @@ def cache_from_jax(tree_np: dict, cfg: ModelConfig) -> dict:
             if name in block:
                 per_leaf.setdefault(name, []).append(_tensor(block[name][u]))
     return {name: torch.stack(rows) for name, rows in per_leaf.items()}
+
+
+def state_from_jax(tree_np, cfg: ModelConfig):
+    """The reference's whole ``TrainState`` in the port's: ``tree_np`` is
+    it with every leaf a numpy array (``jax.tree.map(np.asarray,
+    state)``). Parameters, the AdamW moments ``m``/``v`` and the error
+    feedback ``ef_state`` (or None) all cross by :func:`params_from_jax`'s
+    ``units/b{i}`` mapping, so they are keyed by the port's parameter
+    names and compare leaf for leaf; ``count`` and ``step`` are 0-d int32
+    tensors. Returns the state on the CPU, its parameters trainable; move
+    it with ``TrainState.to(device)``."""
+    from repro_torch.train.loop import TrainState
+
+    def by_name(tree) -> dict:
+        return {k: p.detach()
+                for k, p in params_from_jax(tree, cfg).named_parameters()}
+
+    opt, ef = tree_np.opt_state, tree_np.ef_state
+    return TrainState(
+        params=params_from_jax(tree_np.params, cfg).requires_grad_(True),
+        opt_state={"m": by_name(opt["m"]), "v": by_name(opt["v"]),
+                   "count": _tensor(opt["count"]).to(torch.int32)},
+        step=_tensor(tree_np.step).to(torch.int32),
+        ef_state=None if ef is None else by_name(ef))

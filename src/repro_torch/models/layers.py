@@ -35,6 +35,13 @@ def _init(generator: torch.Generator | None, shape, scale_dim: int, dtype,
                         device=device) * (scale_dim ** -0.5)).to(dtype)
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x.float()``, but a float64 tensor stays float64: where the
+    reference computes in float32, a model cast up to float64 (the
+    training check's high-precision twin) computes in float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 # ---------------------------------------------------------------------------
 # norms / rotary
 # ---------------------------------------------------------------------------
@@ -42,7 +49,7 @@ def _init(generator: torch.Generator | None, shape, scale_dim: int, dtype,
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """f32 statistics; cast to ``x.dtype`` *before* the scale multiply."""
-    xf = x.float()
+    xf = wide(x)
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
@@ -51,12 +58,12 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float
            ) -> torch.Tensor:
     """x: (..., S, H, D) with llama-style half rotation; positions: (..., S)."""
     d = x.shape[-1]
-    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
-                                    device=x.device) / d)
-    angles = positions[..., None].float() * freqs        # (..., S, D/2)
+    fdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=fdt, device=x.device) / d)
+    angles = positions[..., None].to(fdt) * freqs        # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = wide(x).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -152,8 +159,8 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, causal: bool,
                              kv_len_mask=kv_len_mask)
     group = h // hkv
     qg = q.reshape(b, s, hkv, group, dh)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
-                          k.float()) * (dh ** -0.5)
+    scores = torch.einsum("bskgd,btkd->bkgst", wide(qg),
+                          wide(k)) * (dh ** -0.5)
     if causal and s == t:
         mask = torch.ones((s, t), dtype=torch.bool, device=q.device).tril()
         scores = torch.where(mask, scores, -1e30)
@@ -162,7 +169,7 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, causal: bool,
              else kv_len_mask[:, None, None, :, :])
         scores = torch.where(m, scores, -1e30)
     p = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    o = torch.einsum("bkgst,btkd->bskgd", p, wide(v))
     return o.reshape(b, s, h, v.shape[-1]).to(q.dtype)
 
 
@@ -175,12 +182,12 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, causal: bool,
     t, hkv = k.shape[1], k.shape[2]
     group = h // hkv
     bq = cfg.attention_chunk
-    kf, vf = k.float(), v.float()
+    kf, vf = wide(k), wide(v)
     cols = torch.arange(t, device=q.device)[None, :]
     blocks = []
     for i in range(s // bq):
         qi = q[:, i * bq:(i + 1) * bq].reshape(b, bq, hkv, group, dh)
-        scores = torch.einsum("bskgd,btkd->bkgst", qi.float(),
+        scores = torch.einsum("bskgd,btkd->bkgst", wide(qi),
                               kf) * (dh ** -0.5)
         if causal:
             rows = i * bq + torch.arange(bq, device=q.device)
@@ -455,7 +462,7 @@ def apply_moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig
     e, k = cfg.num_experts, cfg.top_k
     dev = x.device
 
-    logits = xt.float() @ p["router"]                        # (T, E)
+    logits = wide(xt) @ p["router"]                          # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :k], top_i[:, :k]                # (T, k)

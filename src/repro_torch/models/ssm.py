@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _init, rms_norm
+from repro_torch.models.layers import _init, rms_norm, wide
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int, int, int, int]:
@@ -104,33 +104,37 @@ def ssd_chunked(x, dt, a_log, b, c, d_skip, chunk: int, initial_state=None):
     chh = cc.repeat_interleave(rep, dim=3) if rep > 1 else cc
 
     # intra-chunk (the "attention-like" SSD term)
-    sc = torch.einsum("bclhn,bcmhn->bchlm", chh.float(), bh.float())
-    # decay D[l,m] = exp(lcum[l] - lcum[m]) for l >= m
+    sc = torch.einsum("bclhn,bcmhn->bchlm", wide(chh), wide(bh))
+    # decay D[l,m] = exp(lcum[l] - lcum[m]) for l >= m; the entries above
+    # the diagonal are masked to exp(-inf) = 0 before the exp, which
+    # changes no value the mask keeps, but keeps their exp(+large) from
+    # overflowing to inf, whose 0 * inf would be NaN in the backward pass
     ll = lcum.permute(0, 1, 3, 2)                          # (B,nc,H,L)
-    dmat = torch.exp(ll[..., :, None] - ll[..., None, :])  # (B,nc,H,L,M)
     mask = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=x.device).tril()
+    dmat = torch.exp(torch.where(mask, ll[..., :, None] - ll[..., None, :],
+                                 -torch.inf))              # (B,nc,H,L,M)
     m_ = torch.where(mask, sc * dmat, 0.0)
-    y_diag = torch.einsum("bchlm,bcmhp->bclhp", m_, xc.float())
+    y_diag = torch.einsum("bchlm,bcmhp->bclhp", m_, wide(xc))
 
     # per-chunk state contribution: sum_m exp(ltot - lcum[m]) B_m x_m^T
     wt = torch.exp(ltot[:, :, None] - lcum)                # (B,nc,L,H)
-    hc = torch.einsum("bclhn,bclh,bclhp->bchnp", bh.float(), wt,
-                      xc.float())                          # (B,nc,H,N,P)
+    hc = torch.einsum("bclhn,bclh,bclhp->bchnp", wide(bh), wt,
+                      wide(xc))                            # (B,nc,H,N,P)
 
     # inter-chunk recurrence, one chunk at a time
-    hstate = (initial_state.float() if initial_state is not None
-              else torch.zeros((bs, h, n, p), device=x.device))
+    hstate = (wide(initial_state) if initial_state is not None
+              else hc.new_zeros((bs, h, n, p)))
     hprevs = []
     for i in range(nc):
         hprevs.append(hstate)
         hstate = hstate * torch.exp(ltot[:, i])[..., None, None] + hc[:, i]
     hprev = torch.stack(hprevs, dim=1)                     # (B,nc,H,N,P)
 
-    y_off = torch.einsum("bclhn,bclh,bchnp->bclhp", chh.float(),
+    y_off = torch.einsum("bclhn,bclh,bchnp->bclhp", wide(chh),
                          torch.exp(lcum), hprev)
     y = (y_diag + y_off).reshape(bs, s, h, p)
-    y = y + d_skip[None, None, :, None] * x.float()
+    y = y + d_skip[None, None, :, None] * wide(x)
     return y[:, :s_orig].to(x.dtype), hstate
 
 
@@ -160,13 +164,13 @@ def apply_ssm(params, xres: torch.Tensor, cfg: ModelConfig, *,
     xn = rms_norm(xres, params["ssm_norm"], cfg.norm_eps)
     zxbcdt = xn @ params["in_proj"]
     z, xbc, dt = _split_proj(zxbcdt, cfg)
-    dt = _softplus(dt.float() + params["dt_bias"])
+    dt = _softplus(wide(dt) + params["dt_bias"])
 
-    w = params["conv_w"].float()                           # (W, Cd)
-    conv_b = params["conv_b"].float()
+    w = wide(params["conv_w"])                             # (W, Cd)
+    conv_b = wide(params["conv_b"])
     if cache is None:
         # causal depthwise conv over the sequence
-        pad = _pad_seq(xbc.float(), width - 1, 0)
+        pad = _pad_seq(wide(xbc), width - 1, 0)
         xbc_c = sum(pad[:, i:i + s] * w[i] for i in range(width))
         xbc_c = F.silu(xbc_c + conv_b)
         x, bmat, cmat = _split_xbc(xbc_c.to(xres.dtype), cfg)
@@ -240,7 +244,7 @@ def apply_ssm(params, xres: torch.Tensor, cfg: ModelConfig, *,
         new_cache = {"conv": conv, "state": state}
 
     y = y.reshape(bs, s, d_in)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"],
+    y = rms_norm(y * F.silu(wide(z)).to(y.dtype), params["gate_norm"],
                  cfg.norm_eps)
     return xres + (y @ params["out_proj"]).to(xres.dtype), new_cache
 

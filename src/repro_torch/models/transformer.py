@@ -92,7 +92,10 @@ class TransformerLM(nn.Module):
     (d, vocab; None with tied embeddings), the front end's
     ``frontend_w1``/``frontend_b`` (and ``frontend_w2`` for vision) in
     ``frontend``, and ``blocks[i]`` holding layer i's parameters by the
-    reference's names. Serving only: no parameter asks for a gradient."""
+    reference's names, and ``cfg``. Built for serving, no parameter asks
+    for a gradient, so the engines build no autograd graph; the training
+    path turns them trainable (``requires_grad_()``, as
+    ``repro_torch.train.loop.init_state`` does)."""
 
     def __init__(self, cfg: ModelConfig, *, embed: torch.Tensor,
                  final_norm: torch.Tensor, head: torch.Tensor | None,
@@ -112,6 +115,7 @@ class TransformerLM(nn.Module):
         if set(frontend) != frontend_param_names(cfg):
             raise ValueError(f"front end holds {sorted(frontend)}, not "
                              f"{sorted(frontend_param_names(cfg))}")
+        self.cfg = cfg
         fixed = lambda t: nn.Parameter(t, requires_grad=False)
         self.embed = fixed(embed)
         self.final_norm = fixed(final_norm)
@@ -121,6 +125,25 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             nn.ParameterDict({n: fixed(t) for n, t in b.items()})
             for b in blocks)
+
+
+def from_named(cfg: ModelConfig, named) -> TransformerLM:
+    """A :class:`TransformerLM` holding ``named``'s tensors, keyed as
+    ``named_parameters()`` names them (``embed``, ``head``,
+    ``frontend.<name>``, ``blocks.<i>.<name>``), without a copy."""
+    named = dict(named)
+    blocks = [{} for _ in range(cfg.num_layers)]
+    frontend = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            blocks[int(parts[1])][parts[2]] = t
+        elif parts[0] == "frontend":
+            frontend[parts[1]] = t
+    return TransformerLM(cfg, embed=named["embed"],
+                         final_norm=named["final_norm"],
+                         head=named.get("head"), blocks=blocks,
+                         frontend=frontend)
 
 
 # ---------------------------------------------------------------------------
@@ -261,23 +284,68 @@ def rms_final(params: TransformerLM, cfg: ModelConfig, x):
 
 
 def head_logits(params: TransformerLM, cfg: ModelConfig, x):
-    """f32 logits from f32 operands (TF32 stays off on CUDA)."""
+    """f32 logits from f32 operands (TF32 stays off on CUDA); f64 in a
+    model cast up to float64."""
     w = params.embed.T if cfg.tie_embeddings else params.head
-    return x.float() @ w.float()
+    return L.wide(x) @ L.wide(w)
+
+
+def _dots_saveable():
+    """The counterpart of ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``: a selective checkpoint that keeps
+    the outputs of matrix products with no batch dimension (``x @ W``,
+    which reaches the dispatcher as ``aten.mm``) and recomputes the rest
+    (the batched products of attention, the SSD and the experts among
+    it)."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
 
 
 def forward(params: TransformerLM, cfg: ModelConfig, batch: dict
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full sequence with no cache. Returns (logits (B, S, V), MoE
-    aux loss summed over the layers)."""
+    aux loss summed over the layers).
+
+    The layers run a unit (``unit_spec``) at a time, as the reference
+    scans them; ``scan_layers`` changes no number, so it stays a loop.
+    Under grad mode with ``cfg.remat``, each unit is rematerialized in
+    the backward pass (``torch.utils.checkpoint``, non-reentrant, the
+    reference's ``jax.checkpoint``): ``remat_policy="full"`` keeps only
+    the unit's input, ``"dots"`` also the outputs of its unbatched
+    matrix products."""
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    spec = unit_spec(cfg)
+    period = len(spec)
+
+    def unit(h, aux, blocks):
+        unit_aux = torch.zeros((), device=h.device)
+        for (kind, ffn), p in zip(spec, blocks):
+            h, _, a = _apply_block(p, h, cfg, kind, ffn, positions=positions,
+                                   cache=None, cache_index=None)
+            unit_aux = unit_aux + a
+        return h, aux + unit_aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), device=x.device)
-    for (kind, ffn, _), p in zip(layer_plan(cfg), params.blocks):
-        x, _, a = _apply_block(p, x, cfg, kind, ffn, positions=positions,
-                               cache=None, cache_index=None)
-        aux = aux + a
+    for u in range(num_units(cfg)):
+        blocks = list(params.blocks[u * period:(u + 1) * period])
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+            kw = ({"context_fn": _dots_saveable}
+                  if cfg.remat_policy == "dots" else {})
+            # the model draws no random numbers: no RNG state to replay
+            x, aux = checkpoint(unit, x, aux, blocks, use_reentrant=False,
+                                preserve_rng_state=False, **kw)
+        else:
+            x, aux = unit(x, aux, blocks)
     x = rms_final(params, cfg, x)
     return head_logits(params, cfg, x), aux
 

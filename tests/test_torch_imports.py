@@ -20,7 +20,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "copy_sweep.py",
     ROOT / "examples" / "torch_dissect_memory.py",
     ROOT / "examples" / "torch_dissect_serve.py",
-    ROOT / "examples" / "torch_fleet_serve.py"]
+    ROOT / "examples" / "torch_fleet_serve.py",
+    ROOT / "examples" / "torch_quickstart.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -65,7 +66,14 @@ def test_guard_sees_the_whole_port():
             "serve_tiers.py", "serve_faults.py", "ssm.py", "shapes.py",
             "deepseek_v2_lite_16b.py", "phi35_moe_42b.py", "mamba2_1p3b.py",
             "hubert_xlarge.py", "internvl2_2b.py",
-            "jamba_1p5_large_398b.py"} <= names
+            "jamba_1p5_large_398b.py", "adamw.py", "checkpoint.py",
+            "fault.py", "loop.py", "compression.py", "train.py",
+            "torch_quickstart.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "optim/__init__", "optim/adamw", "data/__init__", "data/pipeline",
+        "parallel/compression", "train/loop", "train/checkpoint",
+        "train/fault", "launch/train")} <= rel
 
 
 def test_kernel_entry_points_import_lazily():
@@ -77,6 +85,9 @@ def test_kernel_entry_points_import_lazily():
         "import repro_torch.serve, repro_torch.serve.faults\n"
         "import repro_torch.core.cachesim_torch, repro_torch.core.inference\n"
         "import repro_torch.bench, repro_torch.bench.__main__\n"
+        "import repro_torch.launch.train, repro_torch.train.checkpoint\n"
+        "import repro_torch.optim, repro_torch.parallel.compression\n"
+        "import repro_torch.data.pipeline, repro_torch.train.fault\n"
         "repro_torch.bench.discover()\n"
         "from repro_torch.kernels import _build, flash_attention, pchase, "
         "memcpy, dbuf_copy, strided, rmsnorm, batch_cache\n"

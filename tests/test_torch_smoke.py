@@ -284,3 +284,63 @@ def test_compare_bench_masks_only_the_timings(change, both, ok):
     else:
         with pytest.raises(RuntimeError):
             mod.compare_bench(a, b, records=2)
+
+
+# -- the train phase's host-side arithmetic ------------------------------------
+
+
+@pytest.mark.parametrize("losses,falls", [
+    ([5.0] * 5 + [4.0] * 5, True),
+    ([5.0] * 10, False),
+    ([4.0] * 5 + [5.0] * 5, False),
+    ([5.0] * 9, False),                   # too few for two windows of 5
+    ([6, 5, 5, 5, 4, 9, 1, 1, 1, 1, 1], True)])
+def test_loss_falls_compares_the_first_and_last_five(losses, falls):
+    assert smoke().loss_falls(losses) is falls
+
+
+def test_parse_train_log_reads_the_launchers_lines():
+    text = ("arch=mamba2-1.3b params=1,450,000,000 devices=1\n"
+            "step     1 loss=10.8123 ce=10.8123 gnorm=3.125 tok/s=1,024 "
+            "stragglers=0\n"
+            "step     2 loss=nan ce=nan gnorm=inf tok/s=3,072 stragglers=1\n"
+            "done: 2 steps in 1.5s (1,365 tok/s) final_loss=nan\n")
+    log = smoke().parse_train_log(text)
+    assert (log["arch"], log["params"], log["done"]) == (
+        "mamba2-1.3b", 1_450_000_000, True)
+    assert [r["step"] for r in log["steps"]] == [1, 2]
+    assert log["steps"][0] == {"step": 1, "loss": 10.8123, "ce": 10.8123,
+                               "gnorm": 3.125, "tok_s": 1024,
+                               "stragglers": 0}
+    assert not smoke().finite([r["loss"] for r in log["steps"]])
+    assert smoke().finite([r["loss"] for r in log["steps"][:1]])
+    assert not smoke().finite([])
+    cut = smoke().parse_train_log(text.rsplit("done", 1)[0])
+    assert not cut["done"] and len(cut["steps"]) == 2
+    assert smoke().parse_train_log("Traceback ...\n") == {
+        "arch": None, "params": None, "steps": [], "done": False}
+
+
+def test_parse_quickstart_log_reads_the_rates_and_the_ce():
+    text = ("preset=100m: 109.6M params, 200 steps × 8×256 tokens\n"
+            "  step   20  ce=8.1234  (51,200 tok/s)\n"
+            "  step   40  ce=6.0000  (49,000 tok/s)\n"
+            "done in 12s: ce 9.011 -> 1.234 (uniform would be 9.011)\n")
+    q = smoke().parse_quickstart_log(text)
+    assert q == {"steps": [20, 40], "ce": [8.1234, 6.0],
+                 "tok_s": [51200, 49000], "first_last_ce": [9.011, 1.234]}
+    assert smoke().parse_quickstart_log("")["first_last_ce"] is None
+
+
+def test_train_launches_field_on_every_kernel():
+    kernels = [{"name": "flash_attention"}, {"name": "rmsnorm"}]
+    smoke().add_phase_launches(kernels, {
+        "families_launches": {"flash_attention": 80, "rmsnorm": 0},
+        "train_launches": {"flash_attention": 0, "rmsnorm": 0}})
+    assert kernels == [
+        {"name": "flash_attention", "families_launches": 80,
+         "train_launches": 0},
+        {"name": "rmsnorm", "families_launches": 0, "train_launches": 0}]
+    with pytest.raises(KeyError):
+        smoke().add_phase_launches([{"name": "pchase"}],
+                                   {"train_launches": {}})
