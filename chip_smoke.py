@@ -96,12 +96,28 @@ non-zero. Phases:
            and a seeded fault campaign, each run twice and held to
            bit-identical replay; float32 at 4 layers, a tpu_v5e/TeslaV100
            fleet's tokens equal to N=1's; no flash and no scan launch
+  parallel the port's parallelism on a 1-device mesh (a world-1 NCCL
+           group of this process): the paged phase's weights and
+           workload served with the KV pool's leaves as DTensors on the
+           mesh, tokens and ticks bit for bit the paged engine's, gather
+           shards 1, no leaked page and the pool's storage unchanged on
+           every tick, its tok/s beside the unsharded run's (host clock),
+           and a warm window of 8 decode ticks under torch.profiler
+           beside the paged phase's;
+           the launcher's fleet with --mesh-shape 1 at --smoke and its
+           mesh line; a smoke train state saved and restored onto the
+           mesh, bit-equal, its leaves DTensors there; pipeline_apply on
+           one stage against the sequential model with its gradients;
+           no kernel launched by the mesh engine's run (the kernels
+           line's parallel_launches, every count set to 0 just before it
+           and read just after; parallel_phase_launches counts the whole
+           phase); the group destroyed at the end
   bench    the paper's experiments (Tables 5-8, Figs 4/5, 8, 12, 14, 19,
-           the profile round trip and the five serving experiments)
+           the profile round trip and the six serving experiments)
            through the port's harness CLI, twice in full mode: on the
            card with four spawned workers, then on the CPU serially, each
            under a fresh trace-cache root, artifacts under
-           build/repro_torch/bench/; 35 records each, none a DEVIATION or
+           build/repro_torch/bench/; 36 records each, none a DEVIATION or
            an ERROR, in the same order, every metric equal between the two
            runs with only the timings masked (BENCH_TIMING_METRICS);
            strided_kernel_matches_oracle true on the card; at least 3
@@ -823,7 +839,8 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
     record("paged", step="serve", max_len=768, slots=4, **rec)
     oracle = dict(requests=8, slots=4, max_len=768, seed=0, tokens=got,
                   ticks=rec["ticks"], page_len=eng.page_len,
-                  num_pages=eng.alloc.num_pages)
+                  num_pages=eng.alloc.num_pages,
+                  tokens_per_s=rec["tokens_per_s"])
 
     # where the time goes: a warm window of 8 decode ticks, 4 slots busy
     prof = PagedServeEngine(cfg, params, max_slots=4, max_len=768)
@@ -1168,6 +1185,255 @@ def fleet_phase(torch, dev, cfg, params, paged: dict, card: str,
     return launches
 
 
+#: the parallel phase's sizes: the launcher's fleet at --smoke on the
+#: mesh; the smoke train state restored onto it; the pipeline at the
+#: reference's tests/test_pipeline.py shapes (4 units of width 16, batch
+#: 2, 8 microbatches) on one stage
+PARALLEL_SIZE = dict(launcher=["--arch", "granite-8b", "--smoke",
+                               "--engine", "fleet", "--mesh-shape", "1"],
+                     restore_arch="granite-8b", pipeline_units=4,
+                     pipeline_width=16, pipeline_batch=2, pipeline_micro=8)
+#: the pipeline against the sequential model: outputs, and gradients
+#: relative to their largest magnitude
+PIPELINE_TOL = 1e-6
+
+
+def parallel_phase(torch, dev, cfg, params, paged: dict, card: str,
+                   size: dict = PARALLEL_SIZE) -> dict:
+    """The port's parallelism on a 1-device mesh (a world-1 group of this
+    process; NCCL on the card): the paged phase's weights and workload
+    served with the pool on the mesh, its tokens and ticks bit for bit the
+    paged engine's, the pool's storage unchanged every tick, and on the
+    card a warm window of 8 decode ticks under torch.profiler; the
+    launcher's fleet with ``--mesh-shape 1``; a smoke train state
+    restored onto the mesh; ``pipeline_apply`` on one stage against the
+    sequential model, with its gradients. The group is destroyed at the
+    end. Returns each kernel's launches on the main path (the mesh
+    engine's run, every count set to 0 just before it and read just
+    after) and over the whole phase."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.benchmarks.serve_sharded import pool_ptrs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import batch_cache as bc
+    from repro_torch.kernels import dbuf_copy, memcpy, pchase, rmsnorm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import strided
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import (make_production_mesh,
+                                         make_serve_mesh, release_world)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.pipeline import pipeline_apply, stack_stages
+    from repro_torch.serve.engine import PagedServeEngine
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import TrainState, init_state
+
+    mods = {"flash_attention": fa, "pchase": pchase, "memcpy": memcpy,
+            "dbuf_copy": dbuf_copy, "strided": strided, "rmsnorm": rmsnorm,
+            "batch_cache": bc}
+    phase = dict.fromkeys(mods, 0)
+
+    def take() -> dict:
+        """Each kernel's launches since the last call, added to the
+        phase's; every count is then 0."""
+        got = {n: m.launches for n, m in mods.items()}
+        for n, m in mods.items():
+            phase[n] += got[n]
+            m.launches = 0
+        fa.reset_launches()
+        return got
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    take()
+    t_phase = time.perf_counter()
+    mesh = make_serve_mesh(1, device_type=dev.type)
+    record("parallel", step="mesh", axes=list(mesh.mesh_dim_names),
+           shape=list(mesh.shape), device_type=mesh.device_type,
+           backend=str(dist.get_backend()), world=dist.get_world_size(),
+           card=card)
+
+    # -- 1. the paged phase's workload with the pool on the mesh --------------
+    args = argparse.Namespace(requests=paged["requests"], slots=paged["slots"],
+                              max_len=paged["max_len"], seed=paged["seed"],
+                              engine="paged", page_len=None, num_pages=None,
+                              prefill_chunk=None)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        eng = checked(serve._paged_engine(cfg, params, args, mesh))
+    ptrs, moved = pool_ptrs(eng), []
+    step = eng.step
+
+    def step_in_place():
+        live = step()
+        if pool_ptrs(eng) != ptrs:
+            moved.append(eng.steps)
+        return live
+    eng.step = step_in_place
+    take()
+    with contextlib.redirect_stdout(out):
+        res = serve._engine_run(cfg, params, args, engine=eng)
+    sync()
+    path = take()
+    print(out.getvalue(), end="", flush=True)
+    got = {r.uid: r.generated for r in res["finished"]}
+    s = eng.stats()
+    toks = sum(map(len, got.values()))
+    pool = {n: [str(p) for p in leaf.placements]
+            for n, leaf in eng.cache.items() if sh.is_dtensor(leaf)}
+    record("parallel", step="mesh1_serve", requests=len(got), tokens=toks,
+           ticks=s["steps"], paged_ticks=paged["ticks"],
+           wall_ms=res["wall_s"] * 1e3, tokens_per_s=toks / res["wall_s"],
+           unsharded_tokens_per_s=paged["tokens_per_s"],
+           gather_shards=eng.shards, page_len=eng.page_len,
+           num_pages=eng.alloc.num_pages,
+           pages_leaked=eng.alloc.allocated_pages, pool_placements=pool,
+           ticks_pool_moved=moved, uids_equal_to_paged_bf16=sum(
+               got.get(u) == g for u, g in paged["tokens"].items()),
+           card=card)
+    check(got == paged["tokens"],
+          "the 1-device mesh's tokens differ from the paged engine's")
+    check(s["steps"] == paged["ticks"],
+          f"the 1-device mesh took {s['steps']} ticks, the paged engine "
+          f"{paged['ticks']}")
+    check((eng.page_len, eng.alloc.num_pages)
+          == (paged["page_len"], paged["num_pages"]),
+          "the 1-device mesh's pages differ from the paged engine's")
+    check(eng.shards == 1, f"gather shards {eng.shards}, not 1")
+    check(eng.alloc.allocated_pages == 0,
+          f"{eng.alloc.allocated_pages} pages leaked")
+    check(not moved, f"the pool moved on ticks {moved[:5]}")
+    check(bool(pool) and all(sh.is_dtensor(eng.cache[n])
+                             and eng.cache[n].device_mesh is mesh
+                             for n in pool), "the pool is not on the mesh")
+    del eng, res, step
+    gc.collect()
+
+    # where the time goes: a warm window of 8 decode ticks on the mesh, 4
+    # slots busy, the shape of the paged phase's window
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        prof = PagedServeEngine(cfg, params, max_slots=4, max_len=768,
+                                mesh=mesh)
+        rng = np.random.default_rng(5)
+        for uid in range(4):
+            prof.submit(serve.Request(uid, rng.integers(
+                cfg.vocab_size, size=200).astype(np.int32), 64))
+        while len(prof.active) < 4:
+            prof.step()
+
+        def decode_window():
+            for _ in range(8):
+                prof.step()
+
+        record("parallel", step="profile_decode", batch=4, steps=8,
+               **device_busy(torch, decode_window,
+                             _build.BUILD_DIR / "trace_mesh_decode.json"))
+        del prof
+
+    # -- 2. the launcher's fleet on the mesh ----------------------------------
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(size["launcher"] + ["--device", dev.type])
+    lines = out.getvalue().splitlines()
+    print(out.getvalue(), end="", flush=True)
+    mesh_lines = [ln for ln in lines if ln.startswith("serve mesh:")]
+    replicas = [ln for ln in lines if ln.startswith("replica ")]
+    record("parallel", step="launcher_fleet", argv=size["launcher"],
+           mesh_lines=mesh_lines, replica_lines=replicas, card=card)
+    check(mesh_lines == ["serve mesh: {'model': 1} (1 devices, "
+                         f"{dev.type} backend)"],
+          f"the launcher's mesh line: {mesh_lines}")
+    check(len(replicas) == 1 and "gather_shards=1" in replicas[0],
+          f"the launcher's replica line: {replicas}")
+    check(any(ln.startswith("pages: peak=") and " leaked=0 " in ln
+              for ln in lines), "the launcher's fleet leaked pages")
+
+    # -- 3. a smoke train state restored onto the mesh ------------------------
+    scfg = configs.get_smoke_config(size["restore_arch"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_state(scfg, AdamWConfig(), gen, dev)
+    for leaves in (state.opt_state["m"], state.opt_state["v"]):
+        for t in leaves.values():          # moments a trained state holds
+            t.copy_(torch.rand(t.shape, generator=gen, device=dev))
+    state.step.fill_(3)
+    pshard = sh.param_shardings(T.param_logical_axes(state.params),
+                                dict(state.params.named_parameters()),
+                                sh.ShardingCtx(mesh))
+    shardings = TrainState(pshard, {"m": pshard, "v": pshard, "count": None},
+                           None, None)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, 3, state)
+        back, at = ckpt.restore(d, state, shardings=shardings)
+    want, have = dict(ckpt.leaves(state)), dict(ckpt.leaves(back))
+    meshed = [k for k, t in have.items() if sh.is_dtensor(t)]
+    equal = all(torch.equal(sh.full_tensor(have[k]).detach(), t.detach())
+                for k, t in want.items())
+    on_mesh = all(have[k].device_mesh is mesh for k in meshed)
+    record("parallel", step="restore_onto_mesh", arch=scfg.name,
+           restored_step=at,
+           leaves=len(want), dtensor_leaves=len(meshed), equal=equal,
+           card=card)
+    check(at == 3 and equal, "the restored state differs from the saved one")
+    check(len(meshed) == 3 * len(pshard) and on_mesh,
+          f"{len(meshed)} of {3 * len(pshard)} leaves came back on the mesh")
+    del state, back, want, have
+
+    # -- 4. the pipeline on one stage ------------------------------------------
+    u, w, b, m = (size[k] for k in ("pipeline_units", "pipeline_width",
+                                     "pipeline_batch", "pipeline_micro"))
+    pmesh = make_production_mesh(shape=(1,), axes=("stage",),
+                                 device_type=dev.type)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ws = torch.randn(u, w, w, generator=gen, device=dev) * 0.3
+    x = torch.randn(m, b, w, generator=gen, device=dev)
+
+    def stage_fn(p, h):
+        for wi in p.reshape(-1, w, w):
+            h = torch.tanh(h @ wi)
+        return h
+
+    stacked = stack_stages(ws, 1).clone().requires_grad_()
+    xp = x.clone().requires_grad_()
+    y = pipeline_apply(stage_fn, stacked, xp, mesh=pmesh)
+    (y ** 2).sum().backward()
+    ws2, xs = ws.clone().requires_grad_(), x.clone().requires_grad_()
+    ref = stage_fn(ws2, xs)
+    (ref ** 2).sum().backward()
+    errs = {"y": (y - ref).abs().max().item(),
+            "grad_w": ((stacked.grad[0] - ws2.grad).abs().max()
+                       / ws2.grad.abs().max()).item(),
+            "grad_x": ((xp.grad - xs.grad).abs().max()
+                       / xs.grad.abs().max()).item()}
+    record("parallel", step="pipeline", stages=1, units=u, width=w,
+           batch=b, microbatches=m, errors=errs, tol=PIPELINE_TOL, card=card)
+    check(all(math.isfinite(e) and e < PIPELINE_TOL for e in errs.values()),
+          f"the pipeline differs from the sequential model: {errs}")
+
+    # -- 5. launches, and the group torn down ---------------------------------
+    sync()
+    take()
+    release_world()
+    record("parallel", step="launches", launches=path, phase_launches=phase,
+           group_destroyed=not dist.is_initialized(),
+           seconds=time.perf_counter() - t_phase, card=card)
+    check(not dist.is_initialized(), "the mesh's group is still up")
+    check(not any(path.values()),
+          f"the mesh engine's run launched a kernel: {path}")
+    return path, phase
+
+
 #: the harness's metrics that time their run (wall clocks and the rates
 #: taken from them): two runs of the same records differ there and
 #: nowhere else. The bench phase and tests/test_torch_bench.py compare
@@ -1182,7 +1448,7 @@ BENCH_METRIC_FIELDS = ("name", "measured", "expected", "cmp", "tol", "unit",
 #: the bench phase's two full runs of the harness: (torch device, jobs)
 BENCH_RUNS = (("cuda", 4), ("cpu", 1))
 #: experiment x device records of a full run
-BENCH_RECORDS = 35
+BENCH_RECORDS = 36
 #: the least launches of each kernel that the card's run makes: memcpy
 #: once to warm and twice timed (table6 x tpu_v5e), strided once a stride
 #: (table8 x tpu_v5e)
@@ -2909,6 +3175,9 @@ def main() -> int:
     serving_rmsnorm_launches = rn.launches
     torch.cuda.empty_cache()
     fleet_launches = fleet_phase(torch, dev, cfg, params, oracle, card)
+    torch.cuda.empty_cache()
+    parallel_launches, parallel_phase_launches = parallel_phase(
+        torch, dev, cfg, params, oracle, card)
     del params
     torch.cuda.empty_cache()
     bench_launches = bench_phase(card)
@@ -2940,7 +3209,9 @@ def main() -> int:
         "fleet_launches": fleet_launches, "bench_launches": bench_launches,
         "families_launches": families_launches,
         "families_phase_launches": families_phase_launches,
-        "train_launches": train_launches})
+        "train_launches": train_launches,
+        "parallel_launches": parallel_launches,
+        "parallel_phase_launches": parallel_phase_launches})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -19,7 +19,7 @@ go under ``build/repro_torch/`` (``bench/latest.json``,
 ``profiles/<DEVICE>.json``, ``traces/``); the port writes nothing under
 ``experiments/`` or ``docs/``, and reads the committed profiles from
 ``experiments/profiles/``. The ``docs`` subcommand is not ported
-(ROADMAP.md, queue 1 item 10).
+(ROADMAP.md, queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -226,7 +226,7 @@ def cmd_profile(args: argparse.Namespace) -> int:
 
 def cmd_docs() -> int:
     print("error: the docs subcommand is not ported: docs/*.md are the JAX "
-          "package's generated documents (ROADMAP.md, queue 1 item 10); "
+          "package's generated documents (ROADMAP.md, queue 1 item 11); "
           "run `python -m repro.bench docs`", file=sys.stderr)
     return 2
 

@@ -42,11 +42,15 @@ a synthetic workload.
   python -m repro_torch.launch.serve --arch granite-8b --smoke --plan \
       --workload rag --fleet-profiles tpu_v5e,TeslaV100
 
+  # the paged pool sharded over a serving mesh (one rank per device:
+  # a 1-device mesh runs as it is, N devices under torchrun)
+  python -m repro_torch.launch.serve --arch granite-8b --smoke \
+      --engine fleet --mesh-shape 1
+
 Twin of ``repro/launch/serve.py``; its fleet lines print what the
 reference's print, but for wall times and the dissection engine's name.
 It runs on the card unless ``--device cpu`` is given; with no card the
-default fails (``--plan`` needs no device). A serving mesh
-(``--mesh-shape``) is not ported yet and exits with a message.
+default fails (``--plan`` needs no device).
 """
 
 from __future__ import annotations
@@ -66,9 +70,6 @@ from repro_torch.serve.fleet import (ROUTER_MARGIN, FleetEngine,
                                      resolve_fleet_profile)
 from repro_torch.serve.frontend import FleetFrontend
 from repro_torch.train.loop import make_serve_step
-
-_NOT_PORTED = ("--mesh-shape: a serving mesh is not ported to PyTorch yet "
-               "(ROADMAP.md, queue 1 item 9)")
 
 
 def _sync(device: torch.device) -> None:
@@ -111,6 +112,24 @@ def _batch_loop(cfg, params, args) -> dict:
     return {"prefill_s": t_prefill, "decode_s": t_decode, "tokens": gen}
 
 
+def _parse_mesh(args):
+    """``--mesh-shape`` -> a serving mesh (or None): '4' or '2,4', on
+    ``--device``'s device type. Too few ranks exit with the message that
+    names how many to launch."""
+    if not getattr(args, "mesh_shape", None):
+        return None
+    from repro_torch.launch.mesh import make_serve_mesh
+    shape = tuple(int(s) for s in str(args.mesh_shape).split(",") if s)
+    try:
+        mesh = make_serve_mesh(shape,
+                               device_type=torch.device(args.device).type)
+    except RuntimeError as e:
+        raise SystemExit(f"--mesh-shape {args.mesh_shape}: {e}") from None
+    print(f"serve mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+          f"({mesh.size()} devices, {mesh.device_type} backend)")
+    return mesh
+
+
 def _workload(cfg, args) -> list[Request]:
     rng = np.random.default_rng(args.seed)
     reqs = []
@@ -122,16 +141,18 @@ def _workload(cfg, args) -> list[Request]:
     return reqs
 
 
-def _paged_engine(cfg, params, args) -> PagedServeEngine:
-    """The paged engine of ``args``, with the page-length rationale
-    printed as the JAX launcher prints it."""
+def _paged_engine(cfg, params, args, mesh=None) -> PagedServeEngine:
+    """The paged engine of ``args`` (its pool on ``mesh`` if one is
+    given), with the page-length rationale printed as the JAX launcher
+    prints it."""
     eng = PagedServeEngine(cfg, params, max_slots=args.slots,
                            max_len=args.max_len, page_len=args.page_len,
                            num_pages=args.num_pages,
-                           prefill_chunk=args.prefill_chunk)
+                           prefill_chunk=args.prefill_chunk, mesh=mesh)
     print(f"page_len={eng.page_len} "
           f"({'given' if args.page_len else 'cost-model derived'}), "
-          f"pool={eng.alloc.num_pages} pages")
+          f"pool={eng.alloc.num_pages} pages"
+          + (f", gather shards={eng.shards}" if mesh is not None else ""))
     for t in paging.page_len_rationale(cfg, expected_tokens=args.max_len,
                                        shards=eng.shards):
         marker = " <-- chosen" if t.page_len == eng.page_len else ""
@@ -149,8 +170,9 @@ def _engine_run(cfg, params, args, engine=None) -> dict:
     if engine is not None:
         eng = engine
     elif args.engine == "paged":
-        eng = _paged_engine(cfg, params, args)
+        eng = _paged_engine(cfg, params, args, _parse_mesh(args))
     else:
+        _parse_mesh(args)          # printed, as the reference prints it
         eng = ServeEngine(cfg, params, max_slots=args.slots,
                           max_len=args.max_len)
     reqs = _workload(cfg, args)
@@ -212,7 +234,7 @@ def _resolve_fleet_profiles(args):
     return args.fleet_profiles.split(",") if args.fleet_profiles else None
 
 
-def _fleet(cfg, params, args, profiles) -> FleetEngine:
+def _fleet(cfg, params, args, profiles, mesh=None) -> FleetEngine:
     """The fleet ``args`` names; ``--replicas`` passes through verbatim,
     so a replicas/profiles mismatch reaches the CLI user."""
     return FleetEngine(cfg, params, max_slots=args.slots,
@@ -220,21 +242,25 @@ def _fleet(cfg, params, args, profiles) -> FleetEngine:
                        profiles=profiles, page_len=args.page_len,
                        num_pages=args.num_pages,
                        prefill_chunk=args.prefill_chunk,
-                       margin=args.router_margin, tiers=args.fleet_tiers)
+                       margin=args.router_margin, mesh=mesh,
+                       tiers=args.fleet_tiers)
 
 
 def _fleet_run(cfg, params, args) -> dict:
     """``--engine fleet``: stream the launcher's workload through the
     front end. Returns the fleet, the handles and the wall seconds."""
-    fleet = _fleet(cfg, params, args, _resolve_fleet_profiles(args))
+    profiles = _resolve_fleet_profiles(args)
+    fleet = _fleet(cfg, params, args, profiles, _parse_mesh(args))
     if fleet.tiered:
         print(f"tiers: {fleet.tier_plan.describe()}"
               + (" (auto: profile-ranked)"
                  if args.fleet_tiers == "auto" else ""))
     for r in fleet.replicas:
+        shard = (f" gather_shards={r.engine.shards}"
+                 if r.mesh is not None else "")
         print(f"replica {r.name}: tier={r.tier} "
               f"page_len={r.engine.page_len} "
-              f"pool={r.engine.alloc.num_pages} pages, "
+              f"pool={r.engine.alloc.num_pages} pages,{shard} "
               f"inflight_bound={r.inflight_bound} "
               f"(spec: {r.spec.hbm_bytes_per_s/1e9:.0f} GB/s HBM, "
               f"{r.spec.peak_bf16_flops/1e12:.1f} TFLOP/s)")
@@ -327,10 +353,11 @@ def _workload_run(cfg, params, args) -> dict:
     from repro_torch.serve.workload import generate_trace, replay_trace
 
     profiles = _resolve_fleet_profiles(args)
+    mesh = _parse_mesh(args)
     trace = _mk_trace(cfg, args)
 
     def run_once():
-        front = FleetFrontend(_fleet(cfg, params, args, profiles))
+        front = FleetFrontend(_fleet(cfg, params, args, profiles, mesh))
         replay_trace(front, trace)
         front.fleet.check_invariants()
         return front
@@ -392,9 +419,10 @@ def _fault_campaign(cfg, params, args) -> list:
     from repro_torch.serve.faults import FaultInjector, run_campaign
 
     profiles = _resolve_fleet_profiles(args)
+    mesh = _parse_mesh(args)
     work = [(r.prompt, r.max_new_tokens) for r in _workload(cfg, args)]
     t0 = time.perf_counter()
-    reports = [run_campaign(_fleet(cfg, params, args, profiles), work,
+    reports = [run_campaign(_fleet(cfg, params, args, profiles, mesh), work,
                             FaultInjector.campaign(args.faults,
                                                    rate=args.fault_rate))
                for _ in range(2)]
@@ -476,7 +504,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "TPU_V5E constants; tpu-family profiles only, as "
                          "in the JAX package")
     ap.add_argument("--mesh-shape", metavar="N[,M]", default=None,
-                    help="not ported yet: exits")
+                    help="shard each paged engine/replica's KV pool over a "
+                         "device mesh (launch.mesh.make_serve_mesh) on "
+                         "--device: '4' is 4 devices on (model,), '2,4' is "
+                         "(data, model); one rank per device, so N devices "
+                         "need N ranks (torchrun --nproc-per-node N). Token "
+                         "streams are bit-identical across mesh widths")
     # fleet knobs
     ap.add_argument("--replicas", type=int, default=None,
                     help="fleet: number of paged replicas (default 1, or "
@@ -544,8 +577,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mesh_shape:
-        raise SystemExit(_NOT_PORTED)
     if args.router_margin is None:
         args.router_margin = ROUTER_MARGIN
     if args.profile:

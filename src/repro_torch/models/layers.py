@@ -9,8 +9,12 @@ Parameters are plain mappings of tensors, as the JAX package's are
 dicts. Weights keep JAX's ``(in, out)`` layout and multiply as ``x @ W``,
 so a converted JAX pytree needs no transpose.
 
-Sharding annotations (``constrain``) have no counterpart yet: the port
-runs on one card (ROADMAP.md, queue 1 item 9).
+Parameter logical axes are registered in ``PARAM_AXES`` (resolved by
+``repro_torch.parallel.sharding``), and activations carry the reference's
+``constrain`` annotations: the identity outside a sharding ctx, and for
+plain tensors under one. Under a serving mesh the paged pool's leaves are
+``DTensor``s with their KV heads on ``"model"``: the scatter writes each
+rank's heads slice in place and the gather all-gathers the heads back.
 """
 
 from __future__ import annotations
@@ -23,8 +27,56 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import constrain
 
 Params = Mapping[str, torch.Tensor]
+
+# logical axes by parameter name (the reference prepends its stacked
+# "layers" axis, whose rule is None; the port's layers are not stacked)
+PARAM_AXES: dict[str, tuple[str | None, ...]] = {
+    "embed":        ("vocab", "embed"),
+    "head":         ("embed", "vocab"),
+    "final_norm":   ("embed",),
+    "frontend_w1":  (None, "embed"),
+    "frontend_w2":  ("embed", "embed"),
+    "frontend_b":   ("embed",),
+    # attention
+    "attn_norm":    ("embed",),
+    "wq":           ("embed", "q_features"),
+    "wk":           ("embed", "kv_features"),
+    "wv":           ("embed", "kv_features"),
+    "wo":           ("q_features", "embed"),
+    # MLA
+    "w_dq":         ("embed", None),
+    "w_dkv":        ("embed", "kv_lora"),
+    "kv_norm":      ("kv_lora",),
+    "w_uk":         ("kv_lora", "q_features"),
+    "w_uv":         ("kv_lora", "q_features"),
+    # FFN
+    "ffn_norm":     ("embed",),
+    "w_gate":       ("embed", "mlp"),
+    "w_up":         ("embed", "mlp"),
+    "w_down":       ("mlp", "embed"),
+    # MoE
+    "router":       ("embed", "experts"),
+    "moe_gate":     ("experts", "embed", "mlp"),
+    "moe_up":       ("experts", "embed", "mlp"),
+    "moe_down":     ("experts", "mlp", "embed"),
+    "shared_gate":  ("embed", "mlp"),
+    "shared_up":    ("embed", "mlp"),
+    "shared_down":  ("mlp", "embed"),
+    # SSM (mamba2)
+    "ssm_norm":     ("embed",),
+    "in_proj":      ("embed", "inner"),
+    "conv_w":       ("conv", "inner"),
+    "conv_b":       ("inner",),
+    "A_log":        (None,),
+    "ssm_D":        (None,),
+    "dt_bias":      (None,),
+    "gate_norm":    ("inner",),
+    "out_proj":     ("inner", "embed"),
+}
 
 
 def _init(generator: torch.Generator | None, shape, scale_dim: int, dtype,
@@ -88,6 +140,49 @@ def _decode_valid(t: int, cache_index, device) -> torch.Tensor:
 # -- paged KV cache (repro_torch.serve.paging) --------------------------------
 
 
+def _paged_scatter_impl(pages: torch.Tensor, page_table: torch.Tensor,
+                        positions: torch.Tensor, vals: torch.Tensor) -> None:
+    pl = pages.shape[1]
+    phys = torch.gather(page_table, 1, positions // pl)
+    pages.index_put_((phys, positions % pl), vals.to(pages.dtype),
+                     accumulate=False)
+
+
+def _paged_gather_impl(pages: torch.Tensor, page_table: torch.Tensor
+                       ) -> torch.Tensor:
+    b, p = page_table.shape
+    return pages[page_table].reshape(b, p * pages.shape[1], *pages.shape[2:])
+
+
+def _paged_shard_axes(pages: torch.Tensor):
+    """(ctx, heads mesh axes) when the sharded path applies to this pool
+    leaf: an active sharding ctx, a rank-4 ``DTensor`` leaf, and rules
+    that put its KV-heads dimension on mesh axes that divide it while
+    pages and head_dim stay whole. None -> the plain path: unsharded
+    engines, the GQA fallback, MLA's rank-3 compressed leaves, and pages
+    on "data"."""
+    ctx = sharding.current()
+    if ctx is None or pages.ndim != 4 or not sharding.is_dtensor(pages):
+        return None
+    pages_ax, _, heads_ax, hd_ax = ctx.spec(
+        ("cache_pages", None, "cache_kv_heads", "cache_head_dim"),
+        pages.shape)
+    if not heads_ax or pages_ax or hd_ax:
+        return None
+    return ctx, heads_ax
+
+
+def _heads_shard(ctx, heads_ax) -> int:
+    """This rank's index among the shards of the heads mesh axes, the
+    first axis major as in a JAX spec (and in ``DTensor``'s block order)."""
+    axes = (heads_ax,) if isinstance(heads_ax, str) else tuple(heads_ax)
+    coord = dict(zip(ctx.mesh.mesh_dim_names, ctx.mesh.get_coordinate()))
+    idx = 0
+    for a in axes:
+        idx = idx * ctx.shape[a] + coord[a]
+    return idx
+
+
 def _paged_scatter(pages: torch.Tensor, page_table: torch.Tensor,
                    positions: torch.Tensor, vals: torch.Tensor
                    ) -> torch.Tensor:
@@ -101,19 +196,51 @@ def _paged_scatter(pages: torch.Tensor, page_table: torch.Tensor,
     does not matter (nothing live reads page 0). The serving engine keeps
     ``positions // page_len`` inside the table (tests/test_torch_paged.py
     checks every step), where a CUDA index out of range would be a device
-    assert and the JAX gather would clamp."""
-    pl = pages.shape[1]
-    phys = torch.gather(page_table, 1, positions // pl)
-    pages.index_put_((phys, positions % pl), vals.to(pages.dtype),
-                     accumulate=False)
+    assert and the JAX gather would clamp.
+
+    Under a serving mesh each rank writes only its own heads slice of
+    ``vals`` into its local shard: no collective, no pool copy (the twin
+    of the reference's ``shard_map`` over the donated cache). A pool
+    ``DTensor`` off that path is written through its local tensor where
+    every rank holds it whole, else gathered whole, written and cut back
+    to this rank's part."""
+    sharded = _paged_shard_axes(pages)
+    if sharded is not None:
+        ctx, ax = sharded
+        local = pages.to_local()
+        n = local.shape[2]
+        lo = _heads_shard(ctx, ax) * n
+        _paged_scatter_impl(local, page_table, positions,
+                            vals[:, :, lo:lo + n])
+    elif sharding.replicated(pages):
+        _paged_scatter_impl(pages.to_local() if sharding.is_dtensor(pages)
+                            else pages, page_table, positions, vals)
+    else:
+        sharding.update_whole(pages, lambda full: _paged_scatter_impl(
+            full, page_table, positions, vals))
     return pages
 
 
 def _paged_gather(pages: torch.Tensor, page_table: torch.Tensor
                   ) -> torch.Tensor:
-    """Gather each slot's pages back into a (B, P*page_len, ...) view."""
-    b, p = page_table.shape
-    return pages[page_table].reshape(b, p * pages.shape[1], *pages.shape[2:])
+    """Gather each slot's pages back into a (B, P*page_len, ...) view.
+
+    The sharded path gathers each rank's own heads slice locally (at its
+    own partition's bandwidth, the per-partition pricing that
+    ``choose_page_len(shards=...)`` models), then all-gathers the heads
+    into a plain tensor every rank holds whole: one collective that only
+    moves data, so every downstream product sees the same operands at any
+    mesh width and the token streams stay bit-identical. The local gather
+    keeps the leaf's heads dimension (2), so the leaf's placements lay it
+    out; on a 1-device mesh the all-gather is the identity and is skipped."""
+    if not sharding.is_dtensor(pages):
+        return _paged_gather_impl(pages, page_table)
+    mesh, place = pages.device_mesh, pages.placements
+    if _paged_shard_axes(pages) is not None:
+        return sharding.gather(_paged_gather_impl(pages.to_local(),
+                                                  page_table), mesh, place)
+    return _paged_gather_impl(sharding.gather(pages.to_local(), mesh, place),
+                              page_table)
 
 
 def _paged_valid(t: int, positions: torch.Tensor) -> torch.Tensor:
@@ -233,6 +360,8 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     v = (xn @ p["wv"]).reshape(b, s, hkv, hd)
     q = rotary(q, positions, cfg.rope_theta)
     k = rotary(k, positions, cfg.rope_theta)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
 
     if cache is None:
         causal = cfg.causal and not cfg.is_encoder
@@ -276,6 +405,7 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         o = _sdpa(q, ck, cv, cfg, causal=False, kv_len_mask=valid)
         new_cache = {"k": ck, "v": cv}
     o = o.reshape(b, s, hq * hd)
+    o = constrain(o, "batch", "seq", "q_features")
     return x + (o @ p["wo"]).to(x.dtype), new_cache
 
 
@@ -408,6 +538,8 @@ def init_ffn(cfg: ModelConfig, generator: torch.Generator | None, device,
 def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
               prefix: str = "") -> torch.Tensor:
     h = F.silu(x @ p[prefix + "w_gate"]) * (x @ p[prefix + "w_up"])
+    h = (constrain(h, "batch", "seq", "mlp") if h.ndim == 3
+         else constrain(h, "batch", "mlp"))   # shared-expert path: (T, d)
     return (h @ p[prefix + "w_down"]).to(x.dtype)
 
 
@@ -494,9 +626,12 @@ def apply_moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig
     buf.index_put_((torch.where(keep, flat_e, e - 1),
                     torch.where(keep, slot, cap - 1)),
                    torch.where(keep[:, None], xt[tok], 0), accumulate=True)
+    buf = constrain(buf, "experts", "capacity", "embed")
 
     h = F.silu(torch.bmm(buf, p["moe_gate"])) * torch.bmm(buf, p["moe_up"])
+    h = constrain(h, "experts", "capacity", "mlp")
     out_buf = torch.bmm(h, p["moe_down"])                    # (E, cap, d)
+    out_buf = constrain(out_buf, "experts", "capacity", "embed")
 
     gathered = out_buf[flat_e, torch.clamp(slot, max=cap - 1)]   # (T·k, d)
     gathered = torch.where(keep[:, None], gathered, 0)
@@ -506,4 +641,5 @@ def apply_moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig
 
     if cfg.num_shared_experts:
         y = y + apply_ffn(p, xt, cfg, prefix="shared_")
-    return x + y.reshape(b, s, d).to(x.dtype), aux
+    y = constrain(y.reshape(b, s, d), "batch", "seq", "embed")
+    return x + y.to(x.dtype), aux

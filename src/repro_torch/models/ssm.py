@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _init, rms_norm, wide
+from repro_torch.parallel.sharding import constrain
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int, int, int, int]:
@@ -174,7 +175,8 @@ def apply_ssm(params, xres: torch.Tensor, cfg: ModelConfig, *,
         xbc_c = sum(pad[:, i:i + s] * w[i] for i in range(width))
         xbc_c = F.silu(xbc_c + conv_b)
         x, bmat, cmat = _split_xbc(xbc_c.to(xres.dtype), cfg)
-        y, state = ssd_chunked(x.reshape(bs, s, h, p), dt, params["A_log"],
+        x = constrain(x.reshape(bs, s, h, p), "batch", "seq", None, None)
+        y, state = ssd_chunked(x, dt, params["A_log"],
                                bmat.reshape(bs, s, g, n),
                                cmat.reshape(bs, s, g, n), params["ssm_D"],
                                min(cfg.ssm_chunk, s))
@@ -246,6 +248,7 @@ def apply_ssm(params, xres: torch.Tensor, cfg: ModelConfig, *,
     y = y.reshape(bs, s, d_in)
     y = rms_norm(y * F.silu(wide(z)).to(y.dtype), params["gate_norm"],
                  cfg.norm_eps)
+    y = constrain(y, "batch", "seq", "inner")
     return xres + (y @ params["out_proj"]).to(xres.dtype), new_cache
 
 

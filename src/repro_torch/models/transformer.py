@@ -19,7 +19,9 @@ that hold it: attention layers ``{"k", "v"}`` (int8: also ``"k_scale"``,
 "state"}``. The dense cache's leaves are (layers_of_kind, batch, ...),
 the paged cache's attention leaves (layers_of_kind, num_pages, page_len,
 ...) and its SSM leaves (layers_of_kind, max_slots + 1, ...). Axis 1 is
-the slot axis of every dense leaf and of every slot-resident leaf.
+the slot axis of every dense leaf and of every slot-resident leaf. Under
+a serving mesh (``init_paged_cache(mesh=)``) the paged pool's leaves are
+``DTensor``s laid out by ``PAGED_CACHE_AXES``.
 """
 
 from __future__ import annotations
@@ -30,11 +32,14 @@ import functools
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import constrain
 
 #: cache leaves whose axis 2 (axis 1 per layer) is the sequence axis; SSM
 #: leaves (conv, state) are sequence-length-independent
@@ -221,6 +226,21 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     return sum(p.numel() for p in init_params(cfg, None, "meta").parameters())
 
 
+def param_logical_axes(params: TransformerLM) -> dict[str, tuple]:
+    """Logical axes of every parameter, keyed as ``named_parameters()``
+    names it (``blocks.<i>.<name>``, ``frontend.<name>``, ``embed``...).
+    The reference's stacked leaves carry a leading "layers" axis whose
+    rule is None; the port's layers are not stacked, so it has none. A
+    name without an entry, or whose entry does not fit the rank, is
+    replicated."""
+    out = {}
+    for name, leaf in params.named_parameters():
+        axes = tuple(L.PARAM_AXES.get(name.rsplit(".", 1)[-1],
+                                      (None,) * leaf.ndim))
+        out[name] = axes if len(axes) == leaf.ndim else (None,) * leaf.ndim
+    return out
+
+
 # ---------------------------------------------------------------------------
 # apply
 # ---------------------------------------------------------------------------
@@ -252,6 +272,33 @@ def _layer_cache(cfg: ModelConfig, cache: dict, kind: str, row: int) -> dict:
             if name in cache}
 
 
+#: each stacked pool ``DTensor`` -> (its local storage's address, its
+#: per-layer views), made once a pool and dropped with it
+_VIEWS: WeakIdKeyDictionary = WeakIdKeyDictionary()
+
+
+def _layer_views(leaf):
+    """Per-layer views of a stacked ``DTensor`` leaf, each a ``DTensor``
+    over a view of the local tensor (so writes land in ``leaf``), made
+    without the ``DTensor`` dispatch of indexing. They are made on a
+    pool's first step and kept while its local storage stays where it is
+    (the engine updates the pool in place)."""
+    local = leaf.to_local()
+    kept = _VIEWS.get(leaf)
+    if kept is not None and kept[0] == local.data_ptr():
+        return kept[1]
+    from torch.distributed.tensor import DTensor, Shard
+    if any(p.is_shard(0) for p in leaf.placements):
+        raise ValueError("a pool leaf sharded on its layer axis")
+    place = [Shard(p.dim - 1) if p.is_shard() else p
+             for p in leaf.placements]
+    views = [DTensor.from_local(local[i], leaf.device_mesh, place,
+                                run_check=False)
+             for i in range(local.shape[0])]
+    _VIEWS[leaf] = (local.data_ptr(), views)
+    return views
+
+
 def _embed_inputs(params: TransformerLM, cfg: ModelConfig,
                   batch: dict) -> torch.Tensor:
     """tokens and/or front-end embeddings -> (B, S, d) activations; the
@@ -276,7 +323,8 @@ def _embed_inputs(params: TransformerLM, cfg: ModelConfig,
     if "tokens" in batch:
         parts.append(params.embed[batch["tokens"].to(dev)].to(
             cfg.activation_dtype))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return constrain(x, "batch", "seq", "embed")
 
 
 def rms_final(params: TransformerLM, cfg: ModelConfig, x):
@@ -287,7 +335,7 @@ def head_logits(params: TransformerLM, cfg: ModelConfig, x):
     """f32 logits from f32 operands (TF32 stays off on CUDA); f64 in a
     model cast up to float64."""
     w = params.embed.T if cfg.tie_embeddings else params.head
-    return L.wide(x) @ L.wide(w)
+    return constrain(L.wide(x) @ L.wide(w), "batch", "seq", "vocab")
 
 
 def _dots_saveable():
@@ -392,17 +440,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_len: int,
                      max_slots: int,
-                     device: str | torch.device | None = None) -> dict:
+                     device: str | torch.device | None = None, *,
+                     mesh=None, rules: dict | None = None) -> dict:
     """Paged twin of :func:`init_cache`: attention leaves live in a shared
     pool of (layers, num_pages, page_len, ...), whose memory scales with
     ``num_pages``, the pages in circulation, instead of ``max_slots *
     max_len``. SSM leaves stay slot-resident with ``max_slots + 1`` rows:
     row ``max_slots`` is the scratch row, the slot-space twin of scratch
     page 0, which batch rows without a decoding request write. The
-    allocator and page tables stay on the host (``serve.paging``)."""
+    allocator and page tables stay on the host (``serve.paging``).
+
+    ``mesh`` (a ``DeviceMesh``, or a prebuilt
+    :class:`~repro_torch.parallel.sharding.ShardingCtx`) lays the pool
+    leaves out as ``DTensor``s resolved through ``PAGED_CACHE_AXES``: KV
+    heads on ``"model"``, pages replicated (or on ``"data"`` by
+    ``rules``), each rank holding zeros of its own part on the mesh's
+    device (``device`` is then ignored). Slot-resident leaves stay plain
+    tensors on that device."""
     if cfg.kv_cache_dtype == "int8" and not cfg.is_attention_free:
         raise NotImplementedError(
             "int8 KV cache is not paged yet; use the dense ServeEngine")
+    ctx = None
+    if mesh is not None:
+        ctx = (mesh if isinstance(mesh, sharding.ShardingCtx)
+               else sharding.ShardingCtx(mesh, rules))
+        device = sharding.mesh_device(ctx.mesh)
     dev = resolve_device(device)
     dt = cfg.activation_dtype
     n = _layer_counts(cfg)
@@ -424,7 +486,47 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_len: int,
         rows = S.init_ssm_cache(cfg, max_slots + 1, dt, dev)
         for name, leaf in rows.items():
             cache[name] = leaf[None].repeat(n["ssm"], *([1] * leaf.ndim))
+    if ctx is not None:
+        for name, shd in paged_cache_shardings(cache, ctx).items():
+            if name in PAGED_LEAVES:
+                cache[name] = sharding.distribute(cache[name], shd)
     return cache
+
+
+#: paged-pool twin of the reference's CACHE_AXES: attention leaves are
+#: (layers, num_pages, page_len, ...) pools whose heads ride the
+#: "cache_kv_heads" rule (GQA fallback included) and whose pages ride
+#: "cache_pages" (replicated by default, "data" by rule override). The
+#: page_len axis is the contiguous gather row and is never sharded.
+#: Slot-resident SSM leaves are small O(slots) state; they stay
+#: replicated so the scratch-row trick needs no cross-shard reasoning.
+PAGED_CACHE_AXES: dict[str, tuple[str | None, ...]] = {
+    "k": ("layers", "cache_pages", None, "cache_kv_heads",
+          "cache_head_dim"),
+    "v": ("layers", "cache_pages", None, "cache_kv_heads",
+          "cache_head_dim"),
+    "c_kv": ("layers", "cache_pages", None, "kv_lora"),
+    "k_rope": ("layers", "cache_pages", None, None),
+    "conv": ("layers", None, None, None),
+    "state": ("layers", None, None, None, None),
+}
+
+
+def paged_cache_logical_axes(cache: dict) -> dict[str, tuple]:
+    """Logical axes of every leaf of an ``init_paged_cache`` dict."""
+    out = {}
+    for name, leaf in cache.items():
+        axes = PAGED_CACHE_AXES.get(name, (None,) * leaf.ndim)
+        out[name] = axes if len(axes) == leaf.ndim else (None,) * leaf.ndim
+    return out
+
+
+def paged_cache_shardings(cache: dict, ctx) -> dict:
+    """The :class:`~repro_torch.parallel.sharding.NamedSharding` of every
+    leaf of a paged cache, resolved through ``ctx``'s rule table
+    (indivisible axes drop per leaf: the GQA replication fallback)."""
+    return {name: ctx.named(axes, cache[name].shape)
+            for name, axes in paged_cache_logical_axes(cache).items()}
 
 
 def paged_step(params: TransformerLM, cfg: ModelConfig, cache: dict,
@@ -449,11 +551,16 @@ def paged_step(params: TransformerLM, cfg: ModelConfig, cache: dict,
     if seq_lens is not None:
         seq_lens = seq_lens.to(device=dev, dtype=torch.long)
     positions = start[:, None] + torch.arange(s, device=dev)[None, :]
+    views = {name: _layer_views(leaf) for name, leaf in cache.items()
+             if sharding.is_dtensor(leaf)}
     for (kind, ffn, row), p in zip(layer_plan(cfg), params.blocks):
+        layer = _layer_cache(cfg, cache, kind, row) if not views else {
+            name: (views[name][row] if name in views else cache[name][row])
+            for name in _leaf_names(cfg, kind) if name in cache}
         x, _, _ = _apply_block(p, x, cfg, kind, ffn, positions=positions,
-                               cache=_layer_cache(cfg, cache, kind, row),
-                               cache_index=start, page_table=page_tables,
-                               slot_ids=slot_ids, seq_lens=seq_lens)
+                               cache=layer, cache_index=start,
+                               page_table=page_tables, slot_ids=slot_ids,
+                               seq_lens=seq_lens)
     x = rms_final(params, cfg, x)
     return head_logits(params, cfg, x), cache
 

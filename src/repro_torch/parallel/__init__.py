@@ -1,1 +1,3 @@
-"""The port's parallelism: gradient compression so far."""
+"""The port's parallelism: logical-axis sharding (``sharding``), the
+pipeline primitive (``pipeline``) and gradient compression
+(``compression``)."""

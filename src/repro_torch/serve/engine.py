@@ -23,6 +23,10 @@ preempts the youngest request when the pool runs dry.
   (``index_put_``), and each decode step writes its K/V into the same
   tensors. Page tables and the allocator stay on the host, as numpy, and
   go to the card once per step.
+* Under a serving mesh (``mesh``) only the paged pool is sharded: its
+  leaves are ``DTensor``s with the KV heads on ``"model"``
+  (``MESH_SERVE_RULES``); parameters, activations and the host books stay
+  as they are, so the tokens equal the unsharded engine's.
 """
 
 from __future__ import annotations
@@ -36,11 +40,18 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding
 from repro_torch.serve import paging
 from repro_torch.serve.paging import OutOfPages, PageAllocator
 
-_NOT_PORTED_MESH = ("a serving mesh is not ported to PyTorch yet "
-                    "(ROADMAP.md, queue 1 item 9)")
+#: rule overrides for a serving mesh: ONLY the paged pool shards (KV
+#: heads on "model"; pages replicated unless a caller overrides
+#: "cache_pages" to "data"). Every activation rule is neutralized so all
+#: compute runs on operands every rank holds whole: mesh sharding here
+#: buys pool memory and per-shard gather bandwidth while token streams
+#: stay bit-identical across mesh widths.
+MESH_SERVE_RULES: dict = {k: None for k in sharding.DEFAULT_RULES}
+MESH_SERVE_RULES["cache_kv_heads"] = "model"
 
 
 @dataclasses.dataclass
@@ -164,6 +175,42 @@ class ServeEngine:
 # ---------------------------------------------------------------------------
 
 
+def _pages_split(leaf) -> bool:
+    """A pool ``DTensor`` whose pages (dimension 1) are spread over ranks,
+    so that no rank holds every page."""
+    return any(p.is_shard(1) for p in leaf.placements)
+
+
+def _pool_rows(leaf, idx: torch.Tensor) -> torch.Tensor:
+    """``leaf[:, idx]`` of a pool leaf, whole on every rank. Where every
+    rank holds all pages, each selects its part of those rows and only
+    they cross the mesh (a collective of the mesh, once a handoff); pages
+    spread over ranks gather the leaf whole."""
+    if not sharding.is_dtensor(leaf):
+        return leaf[:, idx]
+    if _pages_split(leaf):
+        return leaf.full_tensor()[:, idx]
+    return sharding.gather(leaf.to_local()[:, idx], leaf.device_mesh,
+                           leaf.placements)
+
+
+def _write_pool_rows(leaf, idx: torch.Tensor, rows: torch.Tensor) -> None:
+    """``leaf[:, idx] = rows`` in place, ``rows`` whole on every rank; a
+    sharded leaf writes this rank's part of the rows into its local
+    tensor, with no communication where every rank holds all pages."""
+    if not sharding.is_dtensor(leaf):
+        leaf[:, idx] = rows.to(leaf.device)
+        return
+    rows = rows.to(sharding.mesh_device(leaf.device_mesh))
+    if _pages_split(leaf):
+        def write(full):
+            full[:, idx] = rows
+        sharding.update_whole(leaf, write)
+        return
+    leaf.to_local()[:, idx] = sharding.local_chunk(rows, leaf.device_mesh,
+                                                   leaf.placements)
+
+
 class PagedServeEngine:
     """Continuous batching over a paged KV cache (see module docstring).
 
@@ -174,7 +221,13 @@ class PagedServeEngine:
     realize the memory savings. ``prefill_chunk`` (a multiple of
     ``page_len``; default one page) bounds how much of a tick a long
     prompt can take, and also each request's page slack. Runs on the
-    device of ``params``; ``mesh`` is not ported and raises.
+    device of ``params``.
+
+    ``mesh`` (a ``DeviceMesh``, e.g. ``launch.mesh.make_serve_mesh``)
+    lays the paged pool out over the mesh's ranks, KV heads on
+    ``"model"`` by ``MESH_SERVE_RULES`` updated with ``shard_rules``; each
+    rank runs the engine SPMD on its own copy of ``params`` (on its own
+    card), and the pages are priced per shard (``shards``).
     """
 
     def __init__(self, cfg: ModelConfig, params: T.TransformerLM, *,
@@ -182,17 +235,25 @@ class PagedServeEngine:
                  num_pages: int | None = None,
                  prefill_chunk: int | None = None,
                  sampler: Callable[[torch.Tensor], torch.Tensor] | None = None,
-                 spec=None, mesh=None, hold_after_prefill: bool = False):
+                 spec=None, mesh=None, shard_rules: dict | None = None,
+                 hold_after_prefill: bool = False):
         if cfg.is_encoder:
             raise ValueError("encoder-only model has no decode path")
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED_MESH)
         self.cfg = cfg
         self.params = params
         self.device = params.embed.device
         self.max_slots = max_slots
         self.max_len = max_len
-        self.shards = paging.gather_shards(cfg, None)
+        # `mesh` shards the paged pool leaves; the allocator and page
+        # tables below stay on the host, unchanged
+        self.mesh = mesh
+        if mesh is not None:
+            rules = dict(MESH_SERVE_RULES)
+            rules.update(shard_rules or {})
+            self._shard_ctx = sharding.ShardingCtx(mesh, rules)
+        else:
+            self._shard_ctx = None
+        self.shards = paging.gather_shards(cfg, self._shard_ctx)
         self.page_len = page_len or paging.choose_page_len(
             cfg, spec=spec, expected_tokens=max_len, shards=self.shards)
         self.prefill_chunk = prefill_chunk or self.page_len
@@ -209,7 +270,8 @@ class PagedServeEngine:
             num_pages = max_slots * self.pages_per_seq + paging.SCRATCH_PAGES
         self.alloc = PageAllocator(num_pages, self.page_len)
         self.cache = T.init_paged_cache(cfg, num_pages, self.page_len,
-                                        max_slots, device=self.device)
+                                        max_slots, device=self.device,
+                                        mesh=self._shard_ctx)
         self.page_tables = np.zeros((max_slots, self.pages_per_seq),
                                     dtype=np.int32)
         self.free_slots: deque[int] = deque(range(max_slots))
@@ -238,16 +300,19 @@ class PagedServeEngine:
 
     def _step(self, toks: np.ndarray, start: np.ndarray, tables: np.ndarray,
               slot_ids: np.ndarray, seq_lens: np.ndarray | None):
-        """One :func:`T.paged_step`; the host books go to the card here."""
+        """One :func:`T.paged_step`; the host books go to the card here.
+        The engine's sharding ctx is active around it (None pinned where
+        there is no mesh, so an ambient ctx never reaches the step)."""
         dev = self.device
 
         def put(a):
             return torch.as_tensor(a, dtype=torch.long).to(dev)
 
-        logits, self.cache = T.paged_step(
-            self.params, self.cfg, self.cache, put(toks), put(start),
-            put(tables), put(slot_ids),
-            None if seq_lens is None else put(seq_lens))
+        with sharding.use(self._shard_ctx):
+            logits, self.cache = T.paged_step(
+                self.params, self.cfg, self.cache, put(toks), put(start),
+                put(tables), put(slot_ids),
+                None if seq_lens is None else put(seq_lens))
         return logits
 
     # -- bookkeeping --------------------------------------------------------
@@ -528,8 +593,10 @@ class PagedServeEngine:
         and its KV as a token-major host payload; the source side is
         copy-free like :meth:`evacuate`. The payload's paged leaves are
         ``(layers, tokens, ...)`` CPU tensors, so a destination with a
-        different ``page_len`` can take them; slot-resident (SSM) leaves
-        ride along as their one row, ``(layers, ...)``."""
+        different ``page_len`` (or another mesh) can take them;
+        slot-resident (SSM) leaves ride along as their one row, ``(layers,
+        ...)``. A sharded pool's rows come out with all their heads (a
+        collective: every rank of the mesh exports)."""
         req = next((r for r in self.ready if r.uid == uid), None)
         assert req is not None, f"uid {uid} is not ready for export"
         slot = req.slot
@@ -540,7 +607,7 @@ class PagedServeEngine:
         def one(name, leaf):
             if name not in T.PAGED_LEAVES:
                 return leaf[:, slot].cpu()
-            rows = leaf[:, idx]            # (layers, n, page_len, ...)
+            rows = _pool_rows(leaf, idx)   # (layers, n, page_len, ...)
             flat = rows.reshape((rows.shape[0], len(pages) * self.page_len)
                                 + tuple(rows.shape[3:]))
             return flat[:, :tokens].cpu()
@@ -589,9 +656,9 @@ class PagedServeEngine:
             buf = torch.zeros((row.shape[0], len(pages) * self.page_len)
                               + tuple(row.shape[2:]), dtype=leaf.dtype)
             buf[:, :tokens] = row
-            leaf[:, idx] = buf.reshape(
+            _write_pool_rows(leaf, idx, buf.reshape(
                 (row.shape[0], len(pages), self.page_len)
-                + tuple(row.shape[2:])).to(self.device)
+                + tuple(row.shape[2:])))
         self.positions[slot] = tokens
         self.last_tokens[slot] = payload["last_token"]
         req.prefill_pos = tokens

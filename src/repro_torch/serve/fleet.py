@@ -3,8 +3,9 @@
 A copy of ``repro/serve/fleet.py`` for the port. Each replica runs the
 port's :class:`~repro_torch.serve.engine.PagedServeEngine` on the device
 of ``params``; every replica shares that one parameter object, so the
-weights are never copied per replica. A serving mesh (``mesh``,
-``shard_rules``) is not ported and raises ``NotImplementedError``.
+weights are never copied per replica. ``mesh`` makes every replica a
+device slice whose paged pool is mesh-sharded (``shard_rules`` override
+``MESH_SERVE_RULES``); routing stays on the host, unchanged.
 
 :class:`FleetEngine` runs N :class:`~repro_torch.serve.engine.PagedServeEngine`
 replicas — each bound to its OWN resolved device profile, so mixed
@@ -94,7 +95,7 @@ from repro_torch.core.costmodel import (ParallelismPlan, decode_cell_cost,
 from repro_torch.core.devices import TpuSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve import paging, tiers as tiering
-from repro_torch.serve.engine import _NOT_PORTED_MESH, PagedServeEngine, Request
+from repro_torch.serve.engine import PagedServeEngine, Request
 from repro_torch.serve.tiers import TierPlan
 
 #: default routing margin: a replica within 10% of the cheapest predicted
@@ -231,13 +232,13 @@ class FleetReplica:
                  prefill_chunk: int | None, sampler,
                  mesh=None, shard_rules: dict | None = None,
                  prefill_tier: bool = True, decode_tier: bool = True):
-        if mesh is not None or shard_rules is not None:
-            raise NotImplementedError(_NOT_PORTED_MESH)
         self.index = index
         # resolve ONCE: every subsequent pricing of this replica uses the
         # same pinned spec object (never the mutable process default)
         self.spec = profile.resolve_spec(spec)
-        self.mesh = None               # a serving mesh is not ported
+        # one replica = one device slice: its paged pool is laid out over
+        # `mesh` (KV heads on "model"), its page_len priced per shard
+        self.mesh = mesh
         # tier membership (symmetric fleets leave both True); a
         # prefill-SPECIALIST parks completed prompts for handoff instead
         # of decoding them — that is the only engine-level difference
@@ -247,6 +248,7 @@ class FleetReplica:
             cfg, params, max_slots=max_slots, max_len=max_len,
             page_len=page_len, num_pages=num_pages,
             prefill_chunk=prefill_chunk, sampler=sampler, spec=self.spec,
+            mesh=mesh, shard_rules=shard_rules,
             hold_after_prefill=prefill_tier and not decode_tier)
         self.cfg = cfg
         self._row_bytes = (self.engine.page_len
@@ -347,8 +349,9 @@ class FleetEngine:
     :func:`resolve_fleet_profile`); ``replicas`` alone builds a
     homogeneous fleet on the active profile.  ``num_pages`` may be a
     sequence (one pool size per replica) to model unequal HBM headroom.
-    ``mesh`` (a device slice per replica in the JAX package) is not
-    ported and raises.
+    ``mesh`` makes every replica a device slice: each engine's paged pool
+    is mesh-sharded (``launch.mesh.make_serve_mesh`` builds the shape the
+    ``--mesh-shape`` flag names); routing stays on the host, unchanged.
     Requests enter a fleet-level FIFO and are dispatched head-of-line:
     the router either places ``pending[0]`` or leaves it queued until a
     replica frees capacity — FIFO admission is what makes an N=1 fleet

@@ -7,9 +7,14 @@ and dtype (bfloat16 leaves travel as their raw 16 bits, which numpy
 holds as uint16). Writes are atomic (tmp + rename) and a retention
 policy keeps the newest ``keep`` steps. ``restore`` builds a new tree
 shaped like its template, on the template's devices and in its dtypes,
-and never writes into the template. Restoring onto another mesh
-(``shardings=``) waits for the port's parallelism (ROADMAP.md queue 1
-item 9).
+and never writes into the template.
+
+Checkpoints are mesh-agnostic: ``save`` of ``DTensor`` leaves writes the
+full tensors (every rank joins the gathers, rank 0 writes, and all wait
+for the files), and ``restore(shardings=)`` lays each leaf out on its
+:class:`~repro_torch.parallel.sharding.NamedSharding`, which is the
+elasticity path: a checkpoint written on one mesh restores onto whatever
+mesh is alive.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as sh
 from repro_torch.train.loop import TrainState
 
 _SEP = "//"
@@ -50,23 +56,38 @@ def leaves(tree, prefix: str = ""):
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    t = sh.full_tensor(t.detach()).cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
 
 
-def _flatten(tree) -> tuple[dict[str, np.ndarray], dict[str, str]]:
-    flat, dtypes = {}, {}
+def _flatten(tree) -> tuple[dict[str, np.ndarray], dict[str, str], bool]:
+    """The leaves as numpy by path, their dtypes, and whether any was a
+    ``DTensor`` (gathered whole: a collective of its mesh)."""
+    flat, dtypes, meshed = {}, {}, False
     for key, t in leaves(tree):
+        meshed |= sh.is_dtensor(t)
         flat[key] = _to_numpy(t)
         dtypes[key] = str(t.dtype).removeprefix("torch.")
-    return flat, dtypes
+    return flat, dtypes, meshed
 
 
-def _rebuild(template, flat: dict[str, np.ndarray], prefix: str = ""):
+def _sub(shardings, k):
+    """The part of a shardings mirror that belongs to child ``k``."""
+    if shardings is None:
+        return None
+    if isinstance(shardings, TrainState):
+        return getattr(shardings, k)
+    return shardings.get(k)
+
+
+def _rebuild(template, flat: dict[str, np.ndarray], prefix: str = "",
+             shardings=None):
     """A new tree shaped like ``template``, each leaf from ``flat`` on the
-    template leaf's device and in its dtype."""
+    template leaf's device and in its dtype, or laid out by its entry in
+    ``shardings`` (a mirror of the template: a ``NamedSharding`` or None
+    per leaf, keyed as the template is)."""
     if template is None:
         return None
     if isinstance(template, torch.Tensor):
@@ -75,24 +96,45 @@ def _rebuild(template, flat: dict[str, np.ndarray], prefix: str = ""):
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        return t.to(device=template.device, dtype=template.dtype)
+        t = t.to(dtype=template.dtype)
+        if shardings is not None:
+            return sh.distribute(t, shardings)
+        return t.to(device=template.device)
     key = lambda k: f"{prefix}{_SEP}{k}" if prefix else k
     if isinstance(template, TrainState):
-        return TrainState(*(_rebuild(getattr(template, f), flat, key(f))
+        return TrainState(*(_rebuild(getattr(template, f), flat, key(f),
+                                     _sub(shardings, f))
                             for f in _FIELDS))
     if isinstance(template, T.TransformerLM):
-        named = {k: _rebuild(p.detach(), flat, key(k))
+        named = {k: _rebuild(p.detach(), flat, key(k), _sub(shardings, k))
                  for k, p in template.named_parameters()}
         trainable = any(p.requires_grad for p in template.parameters())
         return T.from_named(template.cfg, named).requires_grad_(trainable)
     if isinstance(template, dict):
-        return {k: _rebuild(v, flat, key(k)) for k, v in template.items()}
+        return {k: _rebuild(v, flat, key(k), _sub(shardings, k))
+                for k, v in template.items()}
     raise TypeError(f"cannot restore into a {type(template).__name__}")
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
+    """Write ``tree`` as step ``step``; returns the ``.npz`` path. With
+    ``DTensor`` leaves every rank calls it: the leaves are gathered whole,
+    rank 0 writes, and every rank returns once the files are there."""
+    flat, dtypes, meshed = _flatten(tree)
+    final = os.path.join(ckpt_dir, f"step-{step:08d}.npz")
+    if meshed:
+        import torch.distributed as dist
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, flat, dtypes, keep)
+        dist.barrier()
+        return final
+    _write(ckpt_dir, step, flat, dtypes, keep)
+    return final
+
+
+def _write(ckpt_dir: str, step: int, flat: dict, dtypes: dict,
+           keep: int) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
-    flat, dtypes = _flatten(tree)
     tmp = os.path.join(ckpt_dir, f".tmp-{step}.npz")
     final = os.path.join(ckpt_dir, f"step-{step:08d}.npz")
     np.savez(tmp, **flat)
@@ -107,7 +149,6 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
         json.dump(manifest, f)
     os.replace(mtmp, os.path.join(ckpt_dir, f"step-{step:08d}.json"))
     _retain(ckpt_dir, keep)
-    return final
 
 
 def _retain(ckpt_dir: str, keep: int) -> None:
@@ -135,12 +176,19 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, template, *, step: int | None = None):
-    """Load a checkpoint into a new tree of the template's structure.
+def restore(ckpt_dir: str, template, *, step: int | None = None,
+            shardings=None):
+    """Load a checkpoint into a new tree of the template's structure,
+    resharded onto ``shardings`` if given: a mirror of the template
+    (a dict by parameter name for a model, as ``param_shardings`` of
+    ``param_logical_axes`` gives, a ``TrainState`` or dict by field for
+    a state) holding a ``NamedSharding`` or None for each leaf. Leaves
+    with a sharding come back as ``DTensor``s on its mesh, each rank
+    holding its part; every rank of that mesh calls ``restore``.
     Returns (tree, step)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
     with np.load(os.path.join(ckpt_dir, f"step-{step:08d}.npz")) as z:
         flat = {k: z[k] for k in z.files}
-    return _rebuild(template, flat), step
+    return _rebuild(template, flat, shardings=shardings), step

@@ -11,7 +11,9 @@ Twin of ``repro/train/fault.py``:
   restarted ends bit-identical to an uninterrupted run (deterministic
   data pipeline and step).
 
-Elasticity (restore onto another mesh) waits for the port's parallelism.
+Elasticity: checkpoints are mesh-agnostic, so a run restarted on another
+mesh restores them with ``checkpoint.restore(shardings=...)`` resolved
+for the mesh that is alive (``parallel.sharding.param_shardings``).
 """
 
 from __future__ import annotations

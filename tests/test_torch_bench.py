@@ -50,9 +50,9 @@ from repro_torch.core import tracecache
 from repro_torch.models.convert import params_from_jax
 
 ROOT = Path(__file__).resolve().parents[1]
-#: the reference's experiments that the port does not carry yet: the
-#: serving mesh (ROADMAP.md queue 1 item 9) and the TPU roofline (item 10)
-NOT_PORTED = ("serve_sharded", "tpu_roofline")
+#: the reference's experiment that the port does not carry yet: the TPU
+#: roofline (ROADMAP.md queue 1 item 11)
+NOT_PORTED = ("tpu_roofline",)
 SERVING = ("serve_paging", "serve_fleet", "serve_workload", "serve_tiers",
            "serve_faults")
 
@@ -129,10 +129,12 @@ def quick_records():
 
 
 def test_the_port_registers_the_reference_s_experiments_but_two():
+    """All of the reference's experiments but ``NOT_PORTED`` (one since
+    the serving mesh came; the name is kept)."""
     jreg.discover()
     want = [(e.name, d) for e in jreg.all_experiments() for d in e.devices
             if e.name not in NOT_PORTED]
-    assert PAIRS == want and len(PAIRS) == 35
+    assert PAIRS == want and len(PAIRS) == 36
     for e in reg.all_experiments():
         j = jreg.get(e.name)
         assert (e.title, e.section, e.artifact, e.tags, dict(e.expected)) \
@@ -229,8 +231,10 @@ def test_select_filters(scratch_registry):
 
 
 def test_discover_skips_the_helpers_and_registers_all_fifteen():
+    """All the port's experiments: sixteen since serve_sharded (the name
+    is kept)."""
     mods = reg.discover()
-    assert "common" not in mods and len(mods) == 15
+    assert "common" not in mods and len(mods) == 16
     assert sorted(mods) == sorted(reg.REGISTRY)
     for e in reg.all_experiments():
         assert e.devices, e.name
@@ -431,16 +435,16 @@ def experiments_unchanged():
 
 def test_cli_quick_run_in_a_spawned_pool_is_the_serial_run(
         tmp_path, experiments_unchanged):
-    """35 PASS through ``python -m repro_torch.bench`` on two spawned
+    """36 PASS through ``python -m repro_torch.bench`` on two spawned
     workers, the same records in the same order as a serial run."""
     out = tmp_path / "quick.json"
     p = _cli("run", "--quick", "--strict", "--torch-device", "cpu",
              "--no-csv", "--jobs", "2", "--no-trace-cache", "--out",
              str(out))
     assert p.returncode == 0, p.stderr
-    assert "35 PASS, 0 DEVIATION, 0 ERROR" in p.stderr
+    assert "36 PASS, 0 DEVIATION, 0 ERROR" in p.stderr
     payload = json.loads(out.read_text())
-    assert payload["summary"] == {PASS: 35, DEVIATION: 0, INFO: 0, ERROR: 0}
+    assert payload["summary"] == {PASS: 36, DEVIATION: 0, INFO: 0, ERROR: 0}
     assert payload["kernel_launches"] == dict.fromkeys(
         runner.KERNELS, 0)
     serial = run_experiments(RunOptions(quick=True, torch_device="cpu"))
@@ -459,14 +463,14 @@ def test_cli_run_without_a_torch_device_needs_the_card(experiments_unchanged):
 def test_cli_list_report_and_docs(tmp_path, capsys, experiments_unchanged):
     assert cli.main(["list"]) == 0
     out = capsys.readouterr().out
-    assert out.startswith("15 experiments (15 registered):")
-    assert "table5_cache_params" in out and "serve_sharded" not in out
+    assert out.startswith("16 experiments (16 registered):")
+    assert "table5_cache_params" in out and "tpu_roofline" not in out
     path = str(ROOT / "experiments" / "bench" / "latest.json")
     assert cli.main(["report", path, "-o", str(tmp_path / "r.md")]) == 0
     assert (tmp_path / "r.md").read_text() == jreport.render_report(
         jresult.load_artifact(path))
     assert cli.main(["docs", "--check"]) == 2
-    assert "queue 1 item 10" in capsys.readouterr().err
+    assert "queue 1 item 11" in capsys.readouterr().err
 
 
 def test_cli_run_writes_its_report_and_fails_strict_on_a_deviation(

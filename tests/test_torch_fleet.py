@@ -204,13 +204,16 @@ def test_n1_fleet_is_the_ports_paged_engine(sides):
 
 
 def test_mesh_is_not_ported(sides):
+    """A serving mesh is ported (tests/test_torch_sharded*.py): what is
+    not a mesh is refused by name, and rules without a mesh change
+    nothing, as in the reference."""
     _, (p, cfg, params) = sides
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="axis names and sizes"):
         p.FleetEngine(cfg, params, max_slots=2, max_len=MAX_LEN,
                       mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.FleetEngine(cfg, params, max_slots=2, max_len=MAX_LEN,
+    f = p.FleetEngine(cfg, params, max_slots=2, max_len=MAX_LEN,
                       shard_rules={"cache_pages": "data"})
+    assert [(r.mesh, r.engine.shards) for r in f.replicas] == [(None, 1)]
 
 
 def test_replicas_share_one_parameter_object(sides):

@@ -164,7 +164,8 @@ def test_fleet_flags_are_the_references_but_mesh_shape():
     ours, theirs = flags(serve.build_parser()), flags(jserve.build_parser())
     assert theirs - ours == set()
     assert ours - theirs == {"--device"}
-    with pytest.raises(SystemExit, match="--mesh-shape.*ROADMAP"):
+    with pytest.raises(SystemExit, match="--mesh-shape 2: serve mesh "
+                                         r"\(2,\) needs 2 devices, have 1"):
         serve.main(BASE + ["--engine", "fleet", "--mesh-shape", "2",
                            "--device", "cpu"])
 
@@ -195,3 +196,34 @@ def test_example_twin_matches_reference(name, monkeypatch, capsys):
     if name == "dissect_serve":
         assert "engine=torch" in got
         assert "page_len=" in got and "pages leaked: 0" in got
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("continuous_batching", []),
+    ("serve_batch", ["--engine", "dense", "--requests", "4",
+                     "--max-len", "48"]),
+    ("serve_batch", ["--engine", "paged", "--requests", "4",
+                     "--max-len", "48", "--slots", "2"]),
+], ids=["continuous_batching", "serve_batch_dense", "serve_batch_paged"])
+def test_serving_example_twin_prints_the_reference_tokens(
+        name, argv, smoke_params, monkeypatch, capsys):
+    """The twins of ``examples/continuous_batching.py`` and
+    ``examples/serve_batch.py`` (over the launcher) on the reference's
+    weights print the reference's lines, its tokens included, once wall
+    times and the port's ``device=`` are masked."""
+    want = _run_example(ROOT / "examples" / f"{name}.py", argv,
+                        monkeypatch, capsys)
+    monkeypatch.setattr(serve.T, "init_params",
+                        lambda cfg, gen, device: smoke_params)
+    before = fa.launches
+    got = _run_example(ROOT / "examples" / f"torch_{name}.py",
+                       [*argv, "--device", "cpu"], monkeypatch, capsys)
+    assert fa.launches == before
+
+    def lines(text):
+        return _mask(re.sub(r"\(\d+\.\ds\)", "(<t>)",
+                            text.replace(" device=cpu", "")))
+
+    assert lines(got) == lines(want)
+    assert ("req 0: prompt[" in got if name == "continuous_batching"
+            else "sample tokens:" in got)

@@ -21,7 +21,10 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "examples" / "torch_dissect_memory.py",
     ROOT / "examples" / "torch_dissect_serve.py",
     ROOT / "examples" / "torch_fleet_serve.py",
-    ROOT / "examples" / "torch_quickstart.py"]
+    ROOT / "examples" / "torch_quickstart.py",
+    ROOT / "examples" / "torch_sharded_serve.py",
+    ROOT / "examples" / "torch_continuous_batching.py",
+    ROOT / "examples" / "torch_serve_batch.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -68,12 +71,16 @@ def test_guard_sees_the_whole_port():
             "hubert_xlarge.py", "internvl2_2b.py",
             "jamba_1p5_large_398b.py", "adamw.py", "checkpoint.py",
             "fault.py", "loop.py", "compression.py", "train.py",
-            "torch_quickstart.py"} <= names
+            "torch_quickstart.py", "sharding.py", "mesh.py",
+            "serve_sharded.py", "torch_sharded_serve.py",
+            "torch_continuous_batching.py", "torch_serve_batch.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {f"src/repro_torch/{m}.py" for m in (
         "optim/__init__", "optim/adamw", "data/__init__", "data/pipeline",
         "parallel/compression", "train/loop", "train/checkpoint",
-        "train/fault", "launch/train")} <= rel
+        "train/fault", "launch/train", "parallel/sharding",
+        "parallel/pipeline", "launch/mesh",
+        "benchmarks/serve_sharded")} <= rel
 
 
 def test_kernel_entry_points_import_lazily():

@@ -334,8 +334,10 @@ def test_export_import_handoff_matches_reference(setup):
 
 
 def test_mesh_is_not_ported(setup):
+    """A serving mesh is ported (tests/test_torch_sharded*.py); what is
+    not a mesh is refused by name."""
     _, _, cfg, params = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="axis names and sizes"):
         PagedServeEngine(cfg, params, max_slots=1, max_len=16, mesh=object())
 
 

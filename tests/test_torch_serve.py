@@ -106,12 +106,20 @@ def test_launcher_runs_on_cpu_without_launches(engine, capsys):
                                   ["--plan", "--mesh-shape", "2,4"],
                                   ["--mesh-shape", "4"]],
                          ids=["flag1", "flag2", "flag3"])
-def test_unported_launcher_paths_exit_naming_roadmap(flag):
-    """Only a serving mesh is left unported: it exits on every engine,
-    and under ``--plan`` too."""
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        serve.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
-                    *flag])
+def test_unported_launcher_paths_exit_naming_roadmap(flag, capsys):
+    """A serving mesh is ported: as in the reference, the paged engines
+    and the fleet build it (and a mesh wider than the ranks there are
+    exits naming how many to launch), while ``--plan`` and the loop
+    ignore the flag."""
+    argv = ["--arch", "granite-8b", "--smoke", "--device", "cpu",
+            "--requests", "2", "--gen", "2", *flag]
+    if "fleet" in flag:
+        with pytest.raises(SystemExit, match="needs 4 devices, have 1 — "
+                                             "launch 4 ranks"):
+            serve.main(argv)
+    else:
+        assert serve.main(argv)
+        assert "serve mesh" not in capsys.readouterr().out
 
 
 def test_default_device_fails_loudly_without_a_card():

@@ -140,6 +140,52 @@ def test_fleet_phase_passes_its_gates_on_the_cpu(capsys):
     assert records[3]["handoffs"] > 0
 
 
+def test_parallel_phase_passes_its_gates_on_the_cpu(capsys):
+    """``parallel_phase`` on smoke granite-8b, on the CPU (a world-1 gloo
+    group): every gate of the card's run holds (a failing gate raises),
+    no kernel launches, one record a step, and the group gone after."""
+    import argparse
+    import json
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    mod = smoke()
+    dev = torch.device("cpu")
+    cfg = configs.get_smoke_config("granite-8b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    args = argparse.Namespace(requests=4, slots=2, max_len=48, seed=0,
+                              engine="paged", page_len=None, num_pages=None,
+                              prefill_chunk=None)
+    eng = serve._paged_engine(cfg, params, args)
+    res = serve._engine_run(cfg, params, args, engine=eng)
+    paged = dict(requests=4, slots=2, max_len=48, seed=0,
+                 tokens={r.uid: r.generated for r in res["finished"]},
+                 ticks=eng.steps, page_len=eng.page_len,
+                 num_pages=eng.alloc.num_pages, tokens_per_s=1.0)
+    capsys.readouterr()
+    path, phase = mod.parallel_phase(torch, dev, cfg, params, paged, "cpu")
+    for launches in (path, phase):
+        assert set(launches) == set(KERNELS) and not any(launches.values())
+    assert not torch.distributed.is_initialized()
+    records = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith('{"phase": "parallel"')]
+    assert [r["step"] for r in records] == [
+        "mesh", "mesh1_serve", "launcher_fleet", "restore_onto_mesh",
+        "pipeline", "launches"]
+    assert records[0]["backend"] == "gloo" and records[0]["world"] == 1
+    serve1 = records[1]
+    assert serve1["gather_shards"] == 1 and serve1["pages_leaked"] == 0
+    assert serve1["pool_placements"] == {"k": ["S(3)"], "v": ["S(3)"]}
+    assert records[3]["dtensor_leaves"] == 3 * len(list(
+        T.init_params(cfg, None, "meta").parameters()))
+    assert records[-1]["group_destroyed"]
+
+
 #: the families phase at a CPU size, on the smoke configs
 CPU_FAMILIES_SIZE = dict(requests=4, slots=2, max_len=48, loop_batch=2,
                          loop_prompt=16, loop_gen=4, f32_layers=2,
