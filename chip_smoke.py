@@ -25,7 +25,9 @@ non-zero. Phases:
            from a torch.profiler trace (the event mean of back-to-back
            calls is set by the host where the kernel is short); a trace
            that misses kernels is taken again, and flagged if it stays
-           short
+           short; where every attempt's trace holds no device event at
+           all (the profiler blind), the event mean stands in for the
+           device time, its trace info's source "cuda_events"
   check    the rmsnorm kernel against its plain version at granite-8b's
            and mistral-large's widths and a width that takes the scalar
            tail, float32 and bfloat16, and its ValueError on CUDA tensors
@@ -117,7 +119,7 @@ non-zero. Phases:
            through the port's harness CLI, twice in full mode: on the
            card with four spawned workers, then on the CPU serially, each
            under a fresh trace-cache root, artifacts under
-           build/repro_torch/bench/; 36 records each, none a DEVIATION or
+           build/repro_torch/bench/; 37 records each, none a DEVIATION or
            an ERROR, in the same order, every metric equal between the two
            runs with only the timings masked (BENCH_TIMING_METRICS);
            strided_kernel_matches_oracle true on the card; at least 3
@@ -166,6 +168,27 @@ non-zero. Phases:
            raising RuntimeError in bf16 and float32. No kernel launches
            (the reference trains on the plain attention, and flash has
            no backward); the kernels line's train_launches says so
+  tooling  right after the parallel phase, on its weights: granite-8b
+           at full width and depth as DTensor parameters on a 1-device
+           mesh (a world-1 NCCL group; the local tensors are the weights
+           themselves), its prefill logits and cache at 4 x 256 on
+           "chunked" attention bit for bit the unsharded prefill's, and
+           one train step of its first 4 layers (loss, gradients, updated
+           parameters) the unsharded step's, bit for bit or within the
+           train phase's float32 gates with the differing leaves
+           named; the group destroyed. Last of all, with no group
+           standing: the dry-run of granite-8b's prefill_32k, decode_32k
+           and train_4k on the 256 fake ranks of the "single" mesh, in
+           this process on meta tensors (trace seconds, per-chip
+           argument GiB beside the cost model's residency, temp bytes,
+           collective kinds, fits_16gb;
+           the card's memory_allocated unchanged; the priced terms are a
+           tpu_v5e pod's, printed as such); the autotune example on the
+           card, its f32 flash within 1e-4; python -m repro_torch.bench
+           docs under build/repro_torch/docs/ and its --check, nothing
+           under experiments/ or docs/ changed. The kernels line's
+           tooling_launches counts the phase's launches (the example's
+           flash)
 
 Then one line ``{"kernels": [...]}``, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -175,6 +198,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import math
 import re
@@ -320,18 +344,22 @@ def complete_trace(torch, fn, path: Path, is_complete) -> tuple[list, dict]:
     TRACE_ATTEMPTS times. Returns the device events of the first complete
     trace (else of the last) and how the traces went. A trace that stays
     short is flagged in the record and on stderr, never averaged as if
-    whole."""
-    short = []
+    whole. ``blind`` is true when every attempt's launches came with no
+    device event at all: the profiler saw none of the card's work, and a
+    caller then times with CUDA events (:func:`time_ms`) instead."""
+    short, blind = [], True
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         dev, missing = window(traced(torch, fn, path))
         ok = not missing and is_complete(dev)
+        blind = blind and not dev and bool(missing)
         if ok:
             break
         short.append({"device_events": len(dev),
                       "missing_calls": (missing or [])[:8]})
     info = {"device_events": len(dev),
             "missing_events": None if missing is None else len(missing),
-            "attempts": attempt, "complete": ok, "short_attempts": short}
+            "attempts": attempt, "complete": ok, "blind": blind,
+            "short_attempts": short}
     if not ok:
         print(f"warning: torch.profiler traces of {path.name} stayed short "
               f"after {attempt} attempts: {info}", file=sys.stderr, flush=True)
@@ -346,7 +374,10 @@ def device_ms(torch, fn, iters: int, name: str | None = None
     kernel alone, without the wrapper's host work), of which the trace
     must hold exactly ``iters``. Without: every kernel, copy and memset of
     the calls over ``iters``; each kernel name must then come a whole
-    number of times a call."""
+    number of times a call. Where the profiler is blind
+    (:func:`complete_trace`), the event mean of ``iters`` back-to-back
+    calls stands in, the wrapper's host work and every kernel of a call
+    included, and the trace info's ``source`` says ``cuda_events``."""
     fn()
     torch.cuda.synchronize()
 
@@ -364,11 +395,18 @@ def device_ms(torch, fn, iters: int, name: str | None = None
 
     dev, info = complete_trace(torch, calls, ROOT / "build" / "repro_torch"
                                / "trace_times.json", whole)
+    info["calls"] = iters
+    if info["blind"]:
+        print(f"warning: torch.profiler saw no device event of "
+              f"{name or 'any kernel'}; timing with CUDA events",
+              file=sys.stderr, flush=True)
+        return time_ms(torch, fn, iters, warmup=0), {
+            **info, "source": "cuda_events"}
+    info["source"] = "profiler"
     if name is not None:
         dev = [e for e in dev if name in e["name"]]
     check(bool(dev), f"no device event ({name or 'any'}) in a trace of "
           f"{iters} calls")
-    info["calls"] = iters
     return sum(e["dur"] for e in dev) / (iters if info["complete"]
                                          else len(dev)) / 1e3, info
 
@@ -428,7 +466,9 @@ def copy_times_in_turns(torch, fn, library, name: str,
     ``calls`` calls (:func:`time_ms`); a device turn is one call's device time in
     one torch.profiler trace of the calls in the same order (the kernels
     whose name holds ``name``; every other device event is the library
-    call's). The medians, each turn's value and the spread."""
+    call's); where the profiler is blind (:func:`complete_trace`), the
+    event turns stand in and the trace info's ``source`` says
+    ``cuda_events``. The medians, each turn's value and the spread."""
     import statistics
     fns = {"kernel": fn, "library": library}
     order = ["kernel", "library", "library", "kernel"] * rounds
@@ -446,7 +486,13 @@ def copy_times_in_turns(torch, fn, library, name: str,
     torch.cuda.synchronize()
     dev, info = complete_trace(torch, in_order, ROOT / "build" / "repro_torch"
                                / "trace_turns.json", whole)
-    device = device_turns(dev, name)
+    if info["blind"]:
+        print(f"warning: torch.profiler saw no device event of {name} or of "
+              "its library call; the event turns stand in",
+              file=sys.stderr, flush=True)
+        device, info["source"] = events, "cuda_events"
+    else:
+        device, info["source"] = device_turns(dev, name), "profiler"
     check(all(device.values()), f"no device event of {name} or of its "
           "library call in a trace of the turns")
 
@@ -1448,7 +1494,7 @@ BENCH_METRIC_FIELDS = ("name", "measured", "expected", "cmp", "tol", "unit",
 #: the bench phase's two full runs of the harness: (torch device, jobs)
 BENCH_RUNS = (("cuda", 4), ("cpu", 1))
 #: experiment x device records of a full run
-BENCH_RECORDS = 36
+BENCH_RECORDS = 37
 #: the least launches of each kernel that the card's run makes: memcpy
 #: once to warm and twice timed (table6 x tpu_v5e), strided once a stride
 #: (table8 x tpu_v5e)
@@ -2000,6 +2046,267 @@ def parse_quickstart_log(text: str) -> dict:
 
 def finite(xs) -> bool:
     return bool(xs) and all(math.isfinite(x) for x in xs)
+
+
+#: the sharded-compute part of the tooling phase: the prefill logits of
+#: the paged phase's model on a 1-device mesh at (batch, tokens), and one
+#: train step of its first ``train_layers`` layers at (batch, tokens)
+SHARDED_SIZE = dict(prefill=(4, 256), train_layers=4, train=(2, 128),
+                    lr=1e-3)
+#: the train phase's float32 gates, for a step where DTensor decomposes an op
+#: otherwise: loss within 1e-5, each gradient within 1e-4 of its leaf's
+#: largest magnitude
+SHARDED_LOSS_TOL = 1e-5
+SHARDED_GRAD_TOL = 1e-4
+#: the rest of the tooling phase: the dry-run cells of ``arch`` on fake
+#: ranks of ``mesh`` (``train_layers`` cuts train_4k's depth where set),
+#: the autotune example, and the generated documents
+TOOLING_SIZE = dict(arch="granite-8b", mesh="single",
+                    cells=("prefill_32k", "decode_32k", "train_4k"),
+                    train_layers=None, cfg_overrides=None, dryrun_out=None,
+                    docs_root=None)
+
+
+def sharded_compute(torch, dev, cfg, params, card: str,
+                    size: dict = SHARDED_SIZE) -> dict:
+    """The model's own parallelism on a 1-device mesh (a world-1 group of
+    this process, NCCL on the card): the paged phase's weights laid out
+    as ``DTensor`` parameters by ``param_shardings`` with no second copy
+    (each shard of a 1-device mesh is the whole tensor, so the local
+    tensors are the weights themselves), on "chunked" attention. The
+    prefill's logits and cache must equal the unsharded prefill's bit for
+    bit; one train step of the first ``train_layers`` layers (loss,
+    every gradient, every updated parameter) the unsharded step's, bit
+    for bit, or else within the train phase's float32 gates with the
+    leaves that differ named. The group is destroyed at the end. Returns each
+    kernel's launches over the part, all 0: the path runs no kernel."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.mesh import make_serve_mesh, release_world
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.loop import TrainState, loss_fn, make_train_step
+
+    mods = {n: importlib.import_module(f"repro_torch.kernels.{n}") for n in KERNELS}
+    for m in mods.values():
+        m.launches = 0
+    t_phase = time.perf_counter()
+    mesh = make_serve_mesh(1, device_type=dev.type)
+    ctx = sh.ShardingCtx(mesh)
+    ccfg = dataclasses.replace(cfg, attention_impl="chunked")
+    named = {n: p.detach() for n, p in params.named_parameters()}
+    shd = sh.param_shardings(T.param_logical_axes(params), named, ctx)
+
+    def on_mesh(names, c):
+        return T.from_named(c, {n: DTensor.from_local(
+            named[n], mesh, shd[n].placements, run_check=False)
+            for n in names})
+
+    model = on_mesh(named, ccfg)
+    same_storage = all(p.to_local().data_ptr() == named[n].data_ptr()
+                       for n, p in model.named_parameters())
+    split = sum(any(q.is_shard() for q in p.placements)
+                for p in model.parameters())
+    record("tooling", step="mesh", backend=str(dist.get_backend()),
+           world=dist.get_world_size(), dtensor_leaves=len(named),
+           sharded_leaves=split, same_storage=same_storage, card=card)
+    check(same_storage, "the DTensor parameters copied the weights")
+
+    b, s = size["prefill"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=gen)
+    with torch.no_grad():
+        want, want_cache = T.prefill(params, ccfg, {"tokens": tokens})
+        with sh.use(ctx):
+            got, got_cache = T.prefill(model, ccfg, {"tokens": tokens})
+        got = sh.full_tensor(got)
+        got_cache = {k: sh.full_tensor(v) for k, v in got_cache.items()}
+    equal = torch.equal(got, want) and all(
+        torch.equal(got_cache[k], want_cache[k]) for k in want_cache)
+    record("tooling", step="prefill_on_mesh", batch=b, tokens=s,
+           attention="chunked", logits_bit_equal=torch.equal(got, want),
+           cache_bit_equal=equal,
+           max_abs_diff=(got.float() - want.float()).abs().max().item(),
+           finite=bool(torch.isfinite(got).all()), card=card)
+    check(bool(torch.isfinite(got).all())
+          and tuple(got.shape) == (b, 1, cfg.vocab_size),
+          "mesh prefill logits not finite or of the wrong shape")
+    check(equal, "the mesh prefill differs from the unsharded prefill")
+    del got, want, got_cache, want_cache, model
+
+    # one train step of the first layers, on both layouts
+    layers = size["train_layers"]
+    tcfg = dataclasses.replace(ccfg, num_layers=layers)
+    keep = [n for n in named if not n.startswith("blocks.")
+            or int(n.split(".")[1]) < layers]
+    b, s = size["train"]
+    tok = torch.randint(0, cfg.vocab_size, (b, s + 1), device=dev,
+                        generator=gen)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    opt = AdamWConfig(lr=size["lr"])
+
+    def run(model, sharded):
+        model.requires_grad_(True)
+        leaves = dict(model.named_parameters())
+        with sh.use(ctx if sharded else None):
+            total, metrics = loss_fn(model, tcfg, batch)
+            grads = torch.autograd.grad(total, list(leaves.values()))
+            state = TrainState(model, adamw_init(
+                {n: p.detach() for n, p in leaves.items()}, opt),
+                torch.zeros((), dtype=torch.int32, device=dev))
+            new, _ = make_train_step(tcfg, opt)(state, batch)
+        out = {"loss": sh.full_tensor(metrics["loss"]),
+               "grads": {n: sh.full_tensor(g) for n, g in zip(leaves, grads)},
+               "new": {n: sh.full_tensor(p.detach())
+                       for n, p in new.params.named_parameters()}}
+        del state, new, grads
+        return out
+
+    want = run(T.from_named(tcfg, {n: named[n] for n in keep}), False)
+    got = run(on_mesh(keep, tcfg), True)
+    loss_equal = torch.equal(got["loss"], want["loss"])
+    differ = sorted(n for n in want["grads"]
+                    if not torch.equal(got["grads"][n], want["grads"][n]))
+    new_differ = sorted(n for n in want["new"]
+                        if not torch.equal(got["new"][n], want["new"][n]))
+    grad_err = {n: ((got["grads"][n].float() - want["grads"][n].float())
+                    .abs().max() / want["grads"][n].float().abs().max()
+                    .clamp(min=1e-30)).item() for n in differ}
+    loss_err = abs(got["loss"].item() - want["loss"].item())
+    record("tooling", step="train_step_on_mesh", layers=layers, batch=b,
+           tokens=s, loss=want["loss"].item(), loss_bit_equal=loss_equal,
+           loss_abs_diff=loss_err, grads=len(want["grads"]),
+           grads_not_bit_equal=differ, grad_rel_err=grad_err,
+           params_not_bit_equal=new_differ, card=card)
+    check(loss_equal or loss_err <= SHARDED_LOSS_TOL * max(
+        1.0, abs(want["loss"].item())),
+        f"the mesh step's loss differs by {loss_err}")
+    check(all(e <= SHARDED_GRAD_TOL for e in grad_err.values()),
+          f"mesh gradients beyond the gate: {grad_err}")
+    del want, got
+    release_world()
+    launches = {n: m.launches for n, m in mods.items()}
+    record("tooling", step="mesh_launches", launches=launches,
+           group_destroyed=not dist.is_initialized(),
+           seconds=time.perf_counter() - t_phase, card=card)
+    check(not dist.is_initialized(), "the mesh's group is still up")
+    return launches
+
+
+def tooling_phase(torch, dev, card: str, size: dict = TOOLING_SIZE) -> dict:
+    """The port's tooling on the card's host: the dry-run of ``arch`` on
+    the fake ranks of ``mesh`` (one process, meta tensors; every priced
+    term is a tpu_v5e pod's, not the card's), its trace seconds, per-chip
+    argument bytes beside the cost model's, temp bytes and collectives,
+    with the card's memory untouched; the autotune example on ``dev``,
+    whose flash launch meets 1e-4; ``python -m repro_torch.bench docs``
+    under build/repro_torch/docs/ and its ``--check``, no file under
+    experiments/ or docs/ changed. Returns each kernel's launches over
+    the phase (the example's flash)."""
+    import importlib.util
+
+    import torch.distributed as dist
+
+    from repro_torch.bench import __main__ as cli
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel import dtensor_tools
+
+    mods = {n: importlib.import_module(f"repro_torch.kernels.{n}") for n in KERNELS}
+    for m in mods.values():
+        m.launches = 0
+    fa.reset_launches()
+    t_phase = time.perf_counter()
+    pieces = dtensor_tools.require()
+    record("tooling", step="torch_pieces", pieces=sorted(pieces),
+           torch=torch.__version__, card=card)
+    check(not dist.is_initialized(), "a process group stands before the "
+          "dry-run's fake ones")
+
+    on_card = dev.type == "cuda"
+    mem0 = torch.cuda.memory_allocated() if on_card else 0
+    out_dir = Path(size["dryrun_out"] or ROOT / "build" / "repro_torch" /
+                   "dryrun") / size["mesh"]
+    chips = dryrun.mesh_chips(size["mesh"])
+    for shape in size["cells"]:
+        over = dict(size["cfg_overrides"] or {})
+        if shape == "train_4k" and size["train_layers"]:
+            over["num_layers"] = size["train_layers"]
+        rec = dryrun.run_cell(size["arch"], shape, size["mesh"],
+                              str(out_dir), cfg_overrides=over or None)
+        r, mem = rec["roofline"], rec["memory"]
+        # the cost model's residency: parameters (and the two bf16
+        # moments of a train state, the decode cache) over the chips
+        resident = r["breakdown"]["param_bytes"] * (
+            3 if SHAPES[shape].kind == "train" else 1)
+        if SHAPES[shape].kind == "decode":
+            resident += r["breakdown"]["cache_bytes"]
+        record("tooling", step="dryrun", arch=size["arch"], shape=shape,
+               mesh=size["mesh"], chips=chips, cut=over or None,
+               trace_s=rec["lower_s"],
+               per_chip_argument_gib=mem["per_chip_argument_bytes"] / 2 ** 30,
+               costmodel_resident_gib_per_chip=resident / chips / 2 ** 30,
+               temp_per_chip_bytes=mem["temp_per_chip_bytes"],
+               fits_16gb=mem["fits_16gb"],
+               collectives=sorted(rec["roofline_compiled"]["coll_payload"]),
+               coll_payload_bytes=rec["roofline_compiled"]["coll_payload"],
+               local_flops=rec["cost"]["flops"],
+               priced_for="tpu_v5e", dominant=r["dominant"],
+               card=card)
+        check(r["step_s"] > 0 and mem["per_chip_argument_bytes"] > 0,
+              f"dry-run {shape}: an empty record")
+        check(not dist.is_initialized(), "the fake group outlived a cell")
+    mem1 = torch.cuda.memory_allocated() if on_card else 0
+    record("tooling", step="dryrun_memory", memory_allocated_before=mem0,
+           memory_allocated_after=mem1, card=card)
+    check(mem1 == mem0, "the dry-run touched the card's memory")
+
+    # the autotune example on the card
+    spec = importlib.util.spec_from_file_location(
+        "torch_autotune_attention",
+        ROOT / "examples" / "torch_autotune_attention.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    err = example.main(["--device", dev.type])
+    routes = dict(fa.route_launches)
+    record("tooling", step="autotune_example", max_abs_err=err,
+           tol=example.TOL, flash_launches=fa.launches,
+           flash_route_launches=routes, card=card)
+    check(err < example.TOL, f"the autotune example's flash is {err} off")
+    check(not on_card or routes.get("f32_fma", 0) >= 1,
+          f"the autotune example launched no f32 flash: {routes}")
+
+    # the generated documents
+    before = tree_state("experiments", "docs")
+    root = size["docs_root"] or cli.DOCS_ROOT
+    saved, cli.DOCS_ROOT = cli.DOCS_ROOT, str(root)
+    try:
+        wrote = cli.main(["docs"])
+        fresh = cli.main(["docs", "--check"])
+    finally:
+        cli.DOCS_ROOT = saved
+    pages = sorted(p.name for p in Path(root).glob("*.md"))
+    record("tooling", step="docs", root=str(Path(root).relative_to(ROOT))
+           if Path(root).is_relative_to(ROOT) else str(root),
+           pages=pages, exit_docs=wrote, exit_check=fresh, card=card)
+    check(wrote == 0 and fresh == 0 and pages == [
+        "cli.md", "experiments.md", "profiles.md", "serving.md"],
+        f"docs {wrote}, docs --check {fresh}, pages {pages}")
+    check(tree_state("experiments", "docs") == before,
+          "the docs run changed a file under experiments/ or docs/")
+
+    launches = {n: m.launches for n, m in mods.items()}
+    record("tooling", step="launches", launches=launches,
+           seconds=time.perf_counter() - t_phase, card=card)
+    check(not on_card or launches["flash_attention"] >= 1,
+          "the tooling phase launched no flash")
+    return launches
 
 
 def add_phase_launches(kernels: list[dict], phases: dict[str, dict]) -> None:
@@ -3178,6 +3485,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel_launches, parallel_phase_launches = parallel_phase(
         torch, dev, cfg, params, oracle, card)
+    torch.cuda.empty_cache()
+    sharded_launches = sharded_compute(torch, dev, cfg, params, card)
     del params
     torch.cuda.empty_cache()
     bench_launches = bench_phase(card)
@@ -3185,6 +3494,10 @@ def main() -> int:
         torch, dev, card)
     torch.cuda.empty_cache()
     train_launches = train_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+    tooling_launches = tooling_phase(torch, dev, card)
+    tooling_launches = {n: c + sharded_launches[n]
+                        for n, c in tooling_launches.items()}
 
     t = times[(32, 256)]
     kernels = [{
@@ -3211,7 +3524,8 @@ def main() -> int:
         "families_phase_launches": families_phase_launches,
         "train_launches": train_launches,
         "parallel_launches": parallel_launches,
-        "parallel_phase_launches": parallel_phase_launches})
+        "parallel_phase_launches": parallel_phase_launches,
+        "tooling_launches": tooling_launches})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -10,6 +10,7 @@
   python -m repro_torch.bench profile show     DEVICE|PATH
   python -m repro_torch.bench profile diff     DEVICE|PATH [--fresh]
   python -m repro_torch.bench profile validate [PATH] [--root DIR]
+  python -m repro_torch.bench docs   [--check] [--only TARGET] [-o FILE]
 
 A copy of ``python -m repro.bench`` for the port. ``--device`` keeps the
 reference's meaning, a registered device to filter by; ``--torch-device``
@@ -18,8 +19,10 @@ with no card ``run`` fails instead of falling back to the CPU. Artifacts
 go under ``build/repro_torch/`` (``bench/latest.json``,
 ``profiles/<DEVICE>.json``, ``traces/``); the port writes nothing under
 ``experiments/`` or ``docs/``, and reads the committed profiles from
-``experiments/profiles/``. The ``docs`` subcommand is not ported
-(ROADMAP.md, queue 1 item 11).
+``experiments/profiles/``. ``docs`` (re)generates the port's generated
+documents — ``experiments.md`` from the registry, ``serving.md``,
+``profiles.md`` and ``cli.md`` from ``bench/docsgen.py`` — under
+``build/repro_torch/docs/``, and ``--check`` exits 1 if any is stale.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from repro_torch.bench import registry, report, result, runner
 from repro_torch.core import tracecache
 
 DEFAULT_ARTIFACT = runner.HINT_ARTIFACT
+#: where ``docs`` writes the generated documents
+DOCS_ROOT = str(runner.ARTIFACT_DIR.parent / "docs")
 #: where ``profile dissect`` writes without ``--out``
 PROFILE_ROOT = str(runner.ARTIFACT_DIR.parent / "profiles")
 DEFAULT_JOBS = max(1, min(os.cpu_count() or 1, 8))
@@ -224,11 +229,51 @@ def cmd_profile(args: argparse.Namespace) -> int:
     raise ValueError(f"unknown profile action {args.action!r}")
 
 
-def cmd_docs() -> int:
-    print("error: the docs subcommand is not ported: docs/*.md are the JAX "
-          "package's generated documents (ROADMAP.md, queue 1 item 11); "
-          "run `python -m repro.bench docs`", file=sys.stderr)
-    return 2
+def _doc_targets() -> dict[str, tuple[str, "callable"]]:
+    """Every generated doc: name -> (default path, renderer). Renderers
+    import lazily: ``cli`` pulls the launchers."""
+    from repro_torch.bench import docsgen
+    return {
+        name: (os.path.join(DOCS_ROOT, f"{name}.md"), render)
+        for name, render in (("experiments", report.experiments_doc),
+                             ("serving", docsgen.serving_doc),
+                             ("profiles", docsgen.profiles_doc),
+                             ("cli", docsgen.cli_doc))
+    }
+
+
+def cmd_docs(args: argparse.Namespace) -> int:
+    targets = _doc_targets()
+    if args.output and not args.only:
+        # historical single-file form: -o PATH acts on experiments.md
+        args.only = "experiments"
+    names = [args.only] if args.only else list(targets)
+    stale = []
+    for name in names:
+        default_path, render = targets[name]
+        path = args.output if (args.only and args.output) else default_path
+        text = render()
+        if args.check:
+            try:
+                with open(path) as fh:
+                    on_disk = fh.read()
+            except FileNotFoundError:
+                on_disk = ""
+            if on_disk != text:
+                stale.append(path)
+            else:
+                print(f"{path} is up to date", file=sys.stderr)
+            continue
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write(text)
+        print(f"wrote {path}", file=sys.stderr)
+    if stale:
+        for path in stale:
+            print(f"{path} is stale; regenerate with "
+                  "`python -m repro_torch.bench docs`", file=sys.stderr)
+        return 1
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -298,13 +343,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="validate: profile root (default "
                         "experiments/profiles)")
     p.set_defaults(fn=cmd_profile)
+
+    p = sub.add_parser("docs",
+                       help="(re)generate every generated doc: "
+                            "experiments, serving, profiles, cli")
+    p.add_argument("-o", "--output", default=None,
+                   help="write a single target to this path (with "
+                        "--only; bare -o keeps the historical "
+                        "experiments.md behavior)")
+    p.add_argument("--only", choices=("experiments", "serving",
+                                      "profiles", "cli"),
+                   help="restrict to one generated doc")
+    p.add_argument("--check", action="store_true",
+                   help="exit 1 if any file on disk is stale")
+    p.set_defaults(fn=cmd_docs)
     return ap
 
 
 def main(argv: list[str] | None = None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] == ["docs"]:       # whatever its options: not ported
-        return cmd_docs()
     args = build_parser().parse_args(argv)
     try:
         registry.discover()

@@ -113,15 +113,26 @@ def _mesh(device_type: str, shape: tuple[int, ...], axes: tuple[str, ...],
 def make_production_mesh(*, multi_pod: bool = False,
                          shape: tuple[int, ...] | None = None,
                          axes: tuple[str, ...] | None = None,
-                         device_type: str = "cuda"):
+                         device_type: str = "cuda", fake: bool = False):
     """The training mesh: ``("data", "model")``, or ``("pod", "data",
     "model")`` for three dimensions; one pod is 16 x 16 (two with
-    ``multi_pod``) unless ``shape`` says otherwise."""
+    ``multi_pod``) unless ``shape`` says otherwise.
+
+    ``fake=True`` is the dry-run's mesh: a ``cpu`` mesh over the fake
+    ranks of ``parallel.dtensor_tools.fake_world``, which must stand,
+    traced as rank 0 (the reference's forced host devices). No serving
+    or training entry point asks for it: a real mesh needs real ranks."""
     if shape is None:
         shape = (2, 16, 16) if multi_pod else (16, 16)
     if axes is None:
         axes = (("pod", "data", "model") if len(shape) == 3
                 else ("data", "model"))
+    if fake:
+        dist = _dist()
+        if not dist.is_initialized() or dist.get_backend() != "fake":
+            raise RuntimeError("a fake mesh is built inside "
+                               "parallel.dtensor_tools.fake_world(n)")
+        device_type = "cpu"
     return _mesh(device_type, tuple(shape), tuple(axes), "mesh")
 
 

@@ -94,6 +94,78 @@ def wide(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
 
 
+def embed_on_shards(table: torch.Tensor, tokens: torch.Tensor
+                    ) -> torch.Tensor:
+    """``table[tokens]`` for a ``DTensor`` table (vocab, d), on each rank's
+    own shards: the table's FSDP split is gathered (as every FSDP weight
+    is before use), and where the vocab stays split each rank looks up
+    the tokens in its slice, zero elsewhere, and an all-reduce joins the
+    slices (Megatron's vocab-parallel embedding). ``DTensor``'s own
+    indexing has no sharding rule for its backward, and its embedding op
+    mis-masks a vocab split beside a batch split. With the vocab whole on
+    the rank it is the unsharded lookup."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    tplace = [Shard(0) if p.is_shard(0) else Replicate()
+              for p in table.placements]
+    if tuple(table.placements) != tuple(tplace):
+        table = table.redistribute(mesh, tplace)
+    vocab = [i for i, p in enumerate(tplace) if p.is_shard(0)]
+    tok_place = (list(tokens.placements) if sharding.is_dtensor(tokens)
+                 else [Replicate()] * mesh.ndim)
+    # the batch may be split over mesh dimensions the vocab is not
+    rows = [Shard(0) if p.is_shard(0) and i not in vocab else Replicate()
+            for i, p in enumerate(tok_place)]
+    tl = (tokens.redistribute(mesh, rows).to_local()
+          if sharding.is_dtensor(tokens)
+          else sharding.local_chunk(tokens, mesh, rows))
+    batch = [i for i, p in enumerate(rows) if p.is_shard(0)]
+    # this rank's table gradient covers its own batch rows only
+    el = sharding.to_local(table, [
+        Shard(0) if i in vocab else Partial() if i in batch else Replicate()
+        for i in range(mesh.ndim)])
+    if math.prod(mesh.size(i) for i in vocab) == 1:
+        return DTensor.from_local(el[tl], mesh, rows, run_check=False)
+    width = el.shape[0]
+    lo = sharding.shard_index(mesh, vocab) * width
+    mine = (tl >= lo) & (tl < lo + width)
+    part = torch.where(mine[..., None], el[torch.clamp(tl - lo, 0,
+                                                       width - 1)], 0)
+    share = [Partial() if i in vocab else p for i, p in enumerate(rows)]
+    return DTensor.from_local(part, mesh, share, run_check=False
+                              ).redistribute(mesh, rows)
+
+
+def logits_on_shards(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for (B, S, d) activations and a ``DTensor`` (d, V) head,
+    laid out as ``constrain(..., "batch", "seq", "vocab")`` resolves, each
+    rank multiplying its batch rows by its vocab slice (the head's FSDP
+    split gathered first). ``DTensor``'s own choice for this product can
+    gather the head whole and hold every rank's logits over the whole
+    vocab before the constraint cuts them."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    ctx = sharding.current()
+    b, s = x.shape[0], x.shape[1]
+    out = sharding.placements(ctx.mesh, ctx.spec(
+        ("batch", "seq", "vocab"), (b, s, w.shape[1])),
+        any_order=ctx.any_order)
+    mesh = ctx.mesh
+    xp = [Shard(0) if p.is_shard(0) else Replicate() for p in out]
+    wp = [Shard(1) if p.is_shard(2) else Replicate() for p in out]
+    x = sharding.on_mesh_of(x, w) if not sharding.is_dtensor(x) else x
+    if tuple(x.placements) != tuple(xp):
+        x = x.redistribute(mesh, xp)
+    if tuple(w.placements) != tuple(wp):
+        w = w.redistribute(mesh, wp)
+    # each rank's gradients: of x from its vocab slice, of w from its
+    # batch rows: shares of sums over the other split
+    xl = sharding.to_local(x, [Partial() if p.is_shard(2) else q
+                               for p, q in zip(out, xp)])
+    wl = sharding.to_local(w, [Partial() if p.is_shard(0) else q
+                               for p, q in zip(out, wp)])
+    return DTensor.from_local(xl @ wl, mesh, out, run_check=False)
+
+
 # ---------------------------------------------------------------------------
 # norms / rotary
 # ---------------------------------------------------------------------------
@@ -176,11 +248,8 @@ def _heads_shard(ctx, heads_ax) -> int:
     """This rank's index among the shards of the heads mesh axes, the
     first axis major as in a JAX spec (and in ``DTensor``'s block order)."""
     axes = (heads_ax,) if isinstance(heads_ax, str) else tuple(heads_ax)
-    coord = dict(zip(ctx.mesh.mesh_dim_names, ctx.mesh.get_coordinate()))
-    idx = 0
-    for a in axes:
-        idx = idx * ctx.shape[a] + coord[a]
-    return idx
+    return sharding.shard_index(
+        ctx.mesh, [ctx.mesh.mesh_dim_names.index(a) for a in axes])
 
 
 def _paged_scatter(pages: torch.Tensor, page_table: torch.Tensor,
@@ -268,6 +337,11 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, causal: bool,
     (decode against a preallocated cache) or (B,S,T) per-query positional
     mask (paged chunked prefill). A mask always takes the plain branch,
     never flash."""
+    if sharding.is_dtensor(q):
+        o = _sdpa_on_shards(q, k, v, cfg, causal=causal,
+                            kv_len_mask=kv_len_mask)
+        if o is not None:
+            return o
     b, s, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     if cfg.attention_impl == "flash" and kv_len_mask is None and s == t:
@@ -285,7 +359,7 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, causal: bool,
         return _sdpa_chunked(q, k, v, cfg, causal=causal,
                              kv_len_mask=kv_len_mask)
     group = h // hkv
-    qg = q.reshape(b, s, hkv, group, dh)
+    qg = sharding.view_heads(q, (b, s, hkv, group, dh), "kv_heads")
     scores = torch.einsum("bskgd,btkd->bkgst", wide(qg),
                           wide(k)) * (dh ** -0.5)
     if causal and s == t:
@@ -300,31 +374,115 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, causal: bool,
     return o.reshape(b, s, h, v.shape[-1]).to(q.dtype)
 
 
+def _sdpa_on_shards(q, k, v, cfg: ModelConfig, *, causal: bool,
+                    kv_len_mask: torch.Tensor | None = None):
+    """Attention on each rank's own shards, where the ``DTensor``s q, k
+    and v split only over batch and heads: every (batch row, query head)
+    is then whole on one rank with the KV head it reads, so the attention
+    runs on the local tensors with no communication, as GSPMD partitions
+    it, and by the unsharded arithmetic. Query and KV heads split alike,
+    or (the GQA fallback: KV heads that do not divide the mesh axes, left
+    whole on every rank) each rank takes the KV heads its query heads
+    read, whose gradients are then its share of a sum. A plain mask is cut
+    to this rank's batch rows. None where the layouts do not allow it (a
+    sequence- or head_dim-sharded cache), for the ``DTensor`` path."""
+    if not (sharding.is_dtensor(k) and sharding.is_dtensor(v)):
+        return None
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    qp, kp = tuple(q.placements), tuple(k.placements)
+    if tuple(v.placements) != kp or not all(
+            p.is_replicate() or p.is_shard(0) or p.is_shard(2)
+            for p in qp + kp):
+        return None
+    if any(a.is_shard(0) != c.is_shard(0) for a, c in zip(qp, kp)):
+        return None
+    mesh = q.device_mesh
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    heads = [i for i, p in enumerate(qp) if p.is_shard(2)]
+    kv_heads = [i for i, p in enumerate(kp) if p.is_shard(2)]
+    kl, vl = None, None
+    if kv_heads != heads:
+        if kv_heads:
+            return None
+        # KV whole on every rank: this rank's query heads [r·hl, (r+1)·hl)
+        # read the KV heads [r·hl // G, ...]
+        hl = h // math.prod(mesh.size(i) for i in heads)
+        if hl % group and group % hl:
+            return None
+        lo = sharding.shard_index(mesh, heads) * hl // group
+        n = max(1, hl // group)
+        shares = [Partial() if i in heads else p for i, p in enumerate(kp)]
+        kl = sharding.to_local(k, shares)[:, :, lo:lo + n]
+        vl = sharding.to_local(v, shares)[:, :, lo:lo + n]
+    if kv_len_mask is not None:
+        if sharding.is_dtensor(kv_len_mask):
+            return None
+        kv_len_mask = sharding.local_chunk(
+            kv_len_mask, mesh,
+            [p if p.is_shard(0) else Replicate() for p in qp])
+    o = _sdpa(sharding.to_local(q),
+              sharding.to_local(k) if kl is None else kl,
+              sharding.to_local(v) if vl is None else vl, cfg,
+              causal=causal, kv_len_mask=kv_len_mask)
+    return DTensor.from_local(o, mesh, qp, run_check=False)
+
+
 def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, causal: bool,
                   kv_len_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Attention one block of ``attention_chunk`` queries at a time, so
     the S×S score matrix never materializes: the reference's ``lax.scan``
-    over q blocks as a Python loop (the same math and FLOPs)."""
+    over q blocks as a Python loop (the same math and FLOPs).
+
+    A block's (B, Hkv, G, bq, T) f32 scores are its one large tensor, so
+    it holds two at most: the scale and the masks are applied in place,
+    and the second product reads the probabilities where they lie. Under
+    grad mode each block is checkpointed, keeping only its inputs for the
+    backward pass, as a fused kernel recomputes its scores (the values
+    are the same; the blocks then do not hold every block's
+    probabilities at once)."""
     b, s, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     group = h // hkv
     bq = cfg.attention_chunk
     kf, vf = wide(k), wide(v)
-    cols = torch.arange(t, device=q.device)[None, :]
-    blocks = []
-    for i in range(s // bq):
-        qi = q[:, i * bq:(i + 1) * bq].reshape(b, bq, hkv, group, dh)
-        scores = torch.einsum("bskgd,btkd->bkgst", wide(qi),
-                              kf) * (dh ** -0.5)
+
+    # (B, Hkv, 1, D, T) and (B, Hkv, 1, T, Dv): each KV head's keys and
+    # values, broadcast over its query group
+    kt = kf.permute(0, 2, 3, 1)[:, :, None]
+    vt = vf.permute(0, 2, 1, 3)[:, :, None]
+
+    def block(qi, kt, vt, i):
+        # (B, Hkv, G, bq, D) @ (B, Hkv, 1, D, T): the scores are the
+        # product's own tensor, not a view of it, so the in-place scale
+        # and masks cost autograd no copy
+        scores = torch.matmul(wide(qi).permute(0, 2, 3, 1, 4), kt)
+        scores.mul_(dh ** -0.5)
         if causal:
             rows = i * bq + torch.arange(bq, device=q.device)
-            scores = torch.where(rows[:, None] >= cols, scores, -1e30)
+            cols = torch.arange(t, device=q.device)
+            scores.masked_fill_(rows[:, None] < cols[None, :], -1e30)
         if kv_len_mask is not None:
-            scores = torch.where(kv_len_mask[:, None, None, None, :],
-                                 scores, -1e30)
+            scores.masked_fill_(~kv_len_mask[:, None, None, None, :], -1e30)
         p = torch.softmax(scores, dim=-1)
-        o = torch.einsum("bkgst,btkd->bskgd", p, vf)
-        blocks.append(o.reshape(b, bq, h, v.shape[-1]))
+        del scores
+        o = torch.matmul(p, vt)                       # (B, Hkv, G, bq, Dv)
+        return o.permute(0, 3, 1, 2, 4).reshape(b, bq, h, v.shape[-1])
+
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    blocks = []
+    for i in range(s // bq):
+        qi = sharding.view_heads(q[:, i * bq:(i + 1) * bq],
+                                 (b, bq, hkv, group, dh), "kv_heads")
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+            blocks.append(checkpoint(block, qi, kt, vt, i,
+                                     use_reentrant=False,
+                                     preserve_rng_state=False))
+        else:
+            blocks.append(block(qi, kt, vt, i))
     return torch.cat(blocks, dim=1).to(q.dtype)
 
 
@@ -355,9 +513,11 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    q = (xn @ p["wq"]).reshape(b, s, hq, hd)
-    k = (xn @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (xn @ p["wv"]).reshape(b, s, hkv, hd)
+    q = sharding.view_heads(xn @ p["wq"], (b, s, hq, hd), "heads")
+    k = sharding.view_heads(xn @ p["wk"], (b, s, hkv, hd),
+                          "kv_heads")
+    v = sharding.view_heads(xn @ p["wv"], (b, s, hkv, hd),
+                          "kv_heads")
     q = rotary(q, positions, cfg.rope_theta)
     k = rotary(k, positions, cfg.rope_theta)
     q = constrain(q, "batch", "seq", "heads", "head_dim")
@@ -404,6 +564,9 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         valid = _decode_valid(ck.shape[1], cache_index, x.device)
         o = _sdpa(q, ck, cv, cfg, causal=False, kv_len_mask=valid)
         new_cache = {"k": ck, "v": cv}
+    # whole heads before they merge: a DTensor output of a cache sharded
+    # on head_dim cannot be viewed across that split
+    o = constrain(o, "batch", "seq", "heads", "head_dim")
     o = o.reshape(b, s, hq * hd)
     o = constrain(o, "batch", "seq", "q_features")
     return x + (o @ p["wo"]).to(x.dtype), new_cache
@@ -446,7 +609,7 @@ def apply_mla(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     nd, rd, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
                      cfg.kv_lora_rank)
     xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    q = (xn @ p["wq"]).reshape(b, s, h, nd + rd)
+    q = sharding.view_heads(xn @ p["wq"], (b, s, h, nd + rd), "heads")
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     q_rope = rotary(q_rope, positions, cfg.rope_theta)
 
@@ -498,12 +661,15 @@ def apply_mla(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         pr = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bhst,btr->bshr", pr, c_kv.float())
         o = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
+        o = constrain(o, "batch", "seq", "heads", "head_dim")
         o = o.reshape(b, s, h * vd).to(x.dtype)
         return x + (o @ p["wo"]).to(x.dtype), new_cache
 
     # naive MLA: expand the compressed cache to per-head K/V
-    k_nope = (c_kv @ p["w_uk"]).reshape(b, t, h, nd)
-    vfull = (c_kv @ p["w_uv"]).reshape(b, t, h, vd)
+    k_nope = sharding.view_heads(c_kv @ p["w_uk"], (b, t, h, nd),
+                                 "heads")
+    vfull = sharding.view_heads(c_kv @ p["w_uv"], (b, t, h, vd),
+                                "heads")
     k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, rd)],
                        dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
@@ -511,6 +677,7 @@ def apply_mla(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         o = _sdpa(q_full, k_full, vfull, cfg, causal=True)
     else:
         o = _sdpa(q_full, k_full, vfull, cfg, causal=False, kv_len_mask=valid)
+    o = constrain(o, "batch", "seq", "heads", "head_dim")
     o = o.reshape(b, s, h * vd)
     return x + (o @ p["wo"]).to(x.dtype), new_cache
 
@@ -590,11 +757,18 @@ def apply_moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig
     b, s, d = x.shape
     xn = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     t = b * s
-    xt = xn.reshape(t, d)
+    xt_sharded = xn.reshape(t, d)
     e, k = cfg.num_experts, cfg.top_k
     dev = x.device
 
-    logits = wide(xt) @ p["router"]                          # (T, E)
+    # on DTensor parameters the routing below (sort, index_add_,
+    # index_put_ with accumulate, the clamped gather) runs on whole
+    # tensors every rank holds alike: DTensor has no sharding rule for
+    # index_add_ into a fresh buffer, and a whole routing keeps the
+    # reference's capacity ranks over all tokens. Only the expert
+    # products run sharded. Unsharded, both are the tensors themselves.
+    logits = sharding.full_tensor(wide(xt_sharded) @ p["router"])  # (T, E)
+    xt = sharding.full_tensor(xt_sharded)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :k], top_i[:, :k]                # (T, k)
@@ -626,12 +800,14 @@ def apply_moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig
     buf.index_put_((torch.where(keep, flat_e, e - 1),
                     torch.where(keep, slot, cap - 1)),
                    torch.where(keep[:, None], xt[tok], 0), accumulate=True)
-    buf = constrain(buf, "experts", "capacity", "embed")
+    buf = constrain(sharding.on_mesh_of(buf, xt_sharded),
+                    "experts", "capacity", "embed")
 
     h = F.silu(torch.bmm(buf, p["moe_gate"])) * torch.bmm(buf, p["moe_up"])
     h = constrain(h, "experts", "capacity", "mlp")
     out_buf = torch.bmm(h, p["moe_down"])                    # (E, cap, d)
-    out_buf = constrain(out_buf, "experts", "capacity", "embed")
+    out_buf = sharding.full_tensor(
+        constrain(out_buf, "experts", "capacity", "embed"))
 
     gathered = out_buf[flat_e, torch.clamp(slot, max=cap - 1)]   # (T·k, d)
     gathered = torch.where(keep[:, None], gathered, 0)
@@ -639,7 +815,11 @@ def apply_moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig
     y = (gathered * top_p.reshape(-1)[:, None].to(xt.dtype)
          ).reshape(t, k, d).sum(dim=1)
 
+    # the whole-tensor results rejoin the mesh, so that autograd hands
+    # their gradients back as plain tensors
+    y = sharding.on_mesh_of(y, xt_sharded)
+    aux = sharding.on_mesh_of(aux, xt_sharded)
     if cfg.num_shared_experts:
-        y = y + apply_ffn(p, xt, cfg, prefix="shared_")
+        y = y + apply_ffn(p, xt_sharded, cfg, prefix="shared_")
     y = constrain(y.reshape(b, s, d), "batch", "seq", "embed")
     return x + y.to(x.dtype), aux

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _init, rms_norm, wide
+from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import constrain
 
 
@@ -79,6 +80,9 @@ def ssd_chunked(x, dt, a_log, b, c, d_skip, chunk: int, initial_state=None):
 
     ``initial_state`` (B,H,N,P) carries the recurrence across chunked
     prefill steps; ``None`` is a zero state."""
+    if sharding.is_dtensor(x):
+        return _ssd_on_shards(x, dt, a_log, b, c, d_skip, chunk,
+                              initial_state)
     s_orig = x.shape[1]
     if s_orig % chunk:
         # pad to a chunk multiple: dt=0 ⇒ decay 1 and zero input, so padded
@@ -137,6 +141,43 @@ def ssd_chunked(x, dt, a_log, b, c, d_skip, chunk: int, initial_state=None):
     y = (y_diag + y_off).reshape(bs, s, h, p)
     y = y + d_skip[None, None, :, None] * wide(x)
     return y[:, :s_orig].to(x.dtype), hstate
+
+
+def _ssd_on_shards(x, dt, a_log, b, c, d_skip, chunk: int,
+                   initial_state=None):
+    """:func:`ssd_chunked` on each rank's own batch rows, where ``x`` is
+    a ``DTensor``: the scan runs along the sequence within each (row,
+    head), so with x laid out as the reference constrains it (batch
+    sharded, the rest whole) and the other inputs alike, every rank runs
+    the unsharded arithmetic on its rows with no communication, where a
+    ``DTensor`` op per chunk step would dispatch thousands of times. The
+    results rejoin the mesh by the same batch placements."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    x = constrain(x, "batch", "seq", None, None)
+    mesh, place = x.device_mesh, tuple(x.placements)
+    if not all(p.is_replicate() or p.is_shard(0) for p in place):
+        raise ValueError(f"an SSD input laid out {place}: only its batch "
+                         "axis may be sharded")
+    whole = [Replicate()] * mesh.ndim
+    # the per-head parameters' local gradients cover this rank's batch
+    # rows only: a share of the sum over the ranks that split the batch
+    shares = [Partial() if p.is_shard(0) else Replicate() for p in place]
+
+    def local(t, lay, grad=None):
+        if t is None:
+            return None
+        if not sharding.is_dtensor(t):
+            t = sharding.on_mesh_of(t, x)
+        if tuple(t.placements) != tuple(lay):
+            t = t.redistribute(mesh, lay)
+        return sharding.to_local(t, grad)
+
+    y, state = ssd_chunked(local(x, place), local(dt, place),
+                           local(a_log, whole, shares), local(b, place),
+                           local(c, place), local(d_skip, whole, shares),
+                           chunk, local(initial_state, place))
+    return (DTensor.from_local(y, mesh, place, run_check=False),
+            DTensor.from_local(state, mesh, place, run_check=False))
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:

@@ -321,8 +321,11 @@ def _embed_inputs(params: TransformerLM, cfg: ModelConfig,
         h = F.gelu(project(batch["patches"]), approximate="tanh")
         parts.append((h @ fe["frontend_w2"]).to(cfg.activation_dtype))
     if "tokens" in batch:
-        parts.append(params.embed[batch["tokens"].to(dev)].to(
-            cfg.activation_dtype))
+        tokens = batch["tokens"].to(dev)
+        rows = (L.embed_on_shards(params.embed, tokens)
+                if sharding.is_dtensor(params.embed)
+                else params.embed[tokens])
+        parts.append(rows.to(cfg.activation_dtype))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     return constrain(x, "batch", "seq", "embed")
 
@@ -335,6 +338,8 @@ def head_logits(params: TransformerLM, cfg: ModelConfig, x):
     """f32 logits from f32 operands (TF32 stays off on CUDA); f64 in a
     model cast up to float64."""
     w = params.embed.T if cfg.tie_embeddings else params.head
+    if sharding.is_dtensor(w) and sharding.current() is not None:
+        return L.logits_on_shards(L.wide(x), L.wide(w))
     return constrain(L.wide(x) @ L.wide(w), "batch", "seq", "vocab")
 
 
@@ -493,6 +498,40 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_len: int,
     return cache
 
 
+# -- cache sharding metadata -------------------------------------------------
+
+#: logical axes of every leaf of an ``init_cache`` dict, the reference's
+#: table over the same leaf names (its leading "layers" axis is the
+#: port's stacked layers-of-a-kind axis)
+CACHE_AXES: dict[str, tuple[str | None, ...]] = {
+    "k": ("layers", "cache_batch", "cache_seq", "cache_kv_heads",
+          "cache_head_dim"),
+    "v": ("layers", "cache_batch", "cache_seq", "cache_kv_heads",
+          "cache_head_dim"),
+    "c_kv": ("layers", "cache_batch", "cache_seq", "kv_lora"),
+    "k_rope": ("layers", "cache_batch", "cache_seq", None),
+    "k_scale": ("layers", "cache_batch", "cache_seq", "cache_kv_heads"),
+    "v_scale": ("layers", "cache_batch", "cache_seq", "cache_kv_heads"),
+    "conv": ("layers", "cache_batch", None, "inner"),
+    "state": ("layers", "cache_batch", "ssm_heads", None, None),
+}
+
+
+def _axes_by_name(table: dict, cache: dict) -> dict[str, tuple]:
+    """``table``'s logical axes of every leaf of ``cache``; a leaf without
+    an entry, or whose entry does not fit its rank, is replicated."""
+    out = {}
+    for name, leaf in cache.items():
+        axes = table.get(name, (None,) * leaf.ndim)
+        out[name] = axes if len(axes) == leaf.ndim else (None,) * leaf.ndim
+    return out
+
+
+def cache_logical_axes(cache: dict) -> dict[str, tuple]:
+    """Logical axes of every leaf of an ``init_cache`` dict."""
+    return _axes_by_name(CACHE_AXES, cache)
+
+
 #: paged-pool twin of the reference's CACHE_AXES: attention leaves are
 #: (layers, num_pages, page_len, ...) pools whose heads ride the
 #: "cache_kv_heads" rule (GQA fallback included) and whose pages ride
@@ -514,11 +553,7 @@ PAGED_CACHE_AXES: dict[str, tuple[str | None, ...]] = {
 
 def paged_cache_logical_axes(cache: dict) -> dict[str, tuple]:
     """Logical axes of every leaf of an ``init_paged_cache`` dict."""
-    out = {}
-    for name, leaf in cache.items():
-        axes = PAGED_CACHE_AXES.get(name, (None,) * leaf.ndim)
-        out[name] = axes if len(axes) == leaf.ndim else (None,) * leaf.ndim
-    return out
+    return _axes_by_name(PAGED_CACHE_AXES, cache)
 
 
 def paged_cache_shardings(cache: dict, ctx) -> dict:
@@ -588,11 +623,39 @@ def prefill(params: TransformerLM, cfg: ModelConfig, batch: dict, *,
                 shape = list(leaf.shape)
                 if name in _SEQ_CACHE_LEAVES:
                     shape[1] = max_len
-                cache[name] = torch.zeros([n[kind]] + shape, dtype=leaf.dtype,
-                                          device=leaf.device)
-            cache[name][row, :, :leaf.shape[1]] = leaf
+                cache[name] = _zeros_stacked(leaf, [n[kind]] + shape)
+            if sharding.is_dtensor(leaf):
+                # laid out alike, the local parts line up: DTensor's own
+                # setitem would gather the stack whole
+                cache[name].to_local()[row, :, :leaf.shape[1]] = \
+                    leaf.to_local()
+            else:
+                cache[name][row, :, :leaf.shape[1]] = leaf
     x = rms_final(params, cfg, x)
     return head_logits(params, cfg, x[:, -1:]), cache
+
+
+def _zeros_stacked(leaf: torch.Tensor, shape: list[int]) -> torch.Tensor:
+    """Zeros of ``shape``, a stack of layers of ``leaf``'s kind (its axis
+    1, the sequence, possibly longer), on ``leaf``'s device. A ``DTensor``
+    leaf (a sharded forward) gets a ``DTensor`` laid out as it is, under
+    a leading whole axis, made from this rank's zeros alone: a buffer of
+    the global shape would hold every rank's part."""
+    if not sharding.is_dtensor(leaf):
+        return torch.zeros(shape, dtype=leaf.dtype, device=leaf.device)
+    from torch.distributed.tensor import DTensor, Shard
+    if any(p.is_shard(1) or p.is_partial() for p in leaf.placements):
+        raise ValueError(f"a cache leaf laid out {leaf.placements}: its "
+                         "sequence axis must be whole")
+    local = leaf.to_local()
+    local_shape = [shape[0], *local.shape]
+    local_shape[2] = shape[2]
+    place = [Shard(p.dim + 1) if p.is_shard() else p
+             for p in leaf.placements]
+    return DTensor.from_local(
+        torch.zeros(local_shape, dtype=leaf.dtype, device=local.device),
+        leaf.device_mesh, place, run_check=False, shape=torch.Size(shape),
+        stride=sharding.contiguous_strides(shape))
 
 
 def decode(params: TransformerLM, cfg: ModelConfig, cache: dict,

@@ -60,7 +60,8 @@ def adamw_init(params: Tensors, cfg: AdamWConfig) -> dict:
     """Zero moments in ``moment_dtype`` beside each parameter, and a 0-d
     int32 ``count`` on the parameters' device."""
     dt = _DT[cfg.moment_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    # zeros_like: a DTensor parameter gets moments laid out as it is
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)
     dev = next(iter(params.values())).device
     return {"m": {k: zeros(p) for k, p in params.items()},
             "v": {k: zeros(p) for k, p in params.items()},

@@ -92,14 +92,22 @@ def _names(entry: SpecEntry) -> tuple[str, ...]:
 
 
 class ShardingCtx:
+    """The active rule set on a mesh. ``any_order`` lets a dimension shard
+    over several mesh axes listed out of the mesh's order (the perf
+    driver's ("model", "data") rules): its placements then lay the
+    dimension out in the mesh's order, the same axes and shard sizes
+    with another assignment of blocks to ranks, which is all a dry-run
+    counts. Off, such a spec raises (see :func:`placements`)."""
+
     def __init__(self, mesh, rules: dict | None = None,
-                 fsdp_params: bool = True):
+                 fsdp_params: bool = True, any_order: bool = False):
         self.mesh = mesh
         self.shape = axis_sizes(mesh)
         self.rules = dict(DEFAULT_RULES)
         if rules:
             self.rules.update(rules)
         self.fsdp_params = fsdp_params
+        self.any_order = any_order
 
     def mesh_axes(self, logical: str | None) -> tuple[str, ...]:
         if logical is None:
@@ -134,7 +142,8 @@ class ShardingCtx:
 
     def named(self, logical_axes: Sequence[str | None],
               dims: Sequence[int] | None = None) -> "NamedSharding":
-        return NamedSharding(self.mesh, self.spec(logical_axes, dims))
+        return NamedSharding(self.mesh, self.spec(logical_axes, dims),
+                             self.any_order)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,25 +153,28 @@ class NamedSharding:
 
     mesh: object
     spec: tuple[SpecEntry, ...]
+    any_order: bool = False
 
     @property
     def placements(self) -> tuple:
-        return placements(self.mesh, self.spec)
+        return placements(self.mesh, self.spec, any_order=self.any_order)
 
 
-def placements(mesh, spec: Sequence[SpecEntry]) -> tuple:
+def placements(mesh, spec: Sequence[SpecEntry], *,
+               any_order: bool = False) -> tuple:
     """``DTensor`` placements of ``spec`` on ``mesh``: for each mesh
     dimension in order, ``Shard(d)`` where dimension ``d``'s entry names
     it, else ``Replicate()``. Several axes on one dimension shard it with
     the earlier mesh dimension major, as a JAX spec's tuple does, so such
-    a tuple must list its axes in the mesh's order."""
+    a tuple must list its axes in the mesh's order, unless ``any_order``
+    (see :class:`ShardingCtx`)."""
     from torch.distributed.tensor import Replicate, Shard
     order = list(axis_sizes(mesh))
     where: dict[str, int] = {}
     for d, entry in enumerate(spec):
         names = _names(entry)
-        if [order.index(a) for a in names] != sorted(order.index(a)
-                                                     for a in names):
+        if not any_order and [order.index(a) for a in names] != sorted(
+                order.index(a) for a in names):
             raise ValueError(f"dimension {d} shards over {names}, not in "
                              f"the mesh's order {tuple(order)}")
         where.update((a, d) for a in names)
@@ -180,9 +192,20 @@ def current() -> ShardingCtx | None:
 
 @contextlib.contextmanager
 def use(ctx: ShardingCtx | None):
+    """Make ``ctx`` the active rule set. Under a ctx, plain tensors made
+    inside the layers (rotary tables, masks, zero accumulators) meet
+    ``DTensor`` activations as replicated ones (``implicit_replication``),
+    as the reference's jit treats its constants; with no ctx nothing else
+    is entered."""
     token = _CTX.set(ctx)
     try:
-        yield ctx
+        if ctx is None:
+            yield ctx
+        else:
+            from repro_torch.parallel.dtensor_tools import \
+                implicit_replication
+            with implicit_replication():
+                yield ctx
     finally:
         _CTX.reset(token)
 
@@ -208,7 +231,8 @@ def constrain(x: torch.Tensor, *logical_axes: str | None) -> torch.Tensor:
         raise ValueError(f"{len(logical_axes)} axes for rank-{x.ndim} tensor")
     if not is_dtensor(x):
         return x
-    want = placements(ctx.mesh, ctx.spec(logical_axes, x.shape))
+    want = placements(ctx.mesh, ctx.spec(logical_axes, x.shape),
+                      any_order=ctx.any_order)
     if tuple(x.placements) == want:
         return x
     return x.redistribute(ctx.mesh, want)
@@ -274,8 +298,82 @@ def distribute(full: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
 
 def full_tensor(x: torch.Tensor) -> torch.Tensor:
     """A ``DTensor`` gathered whole on every rank (a collective: every
-    rank of its mesh calls it); a plain tensor as it is."""
+    rank of its mesh calls it, and autograd passes through it); a plain
+    tensor as it is."""
     return x.full_tensor() if is_dtensor(x) else x
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def to_local(x: torch.Tensor, grad_placements=None) -> torch.Tensor:
+    """This rank's local tensor of the ``DTensor`` ``x``, for work done
+    shard by shard. ``grad_placements`` says how the local gradient lies
+    over the mesh where it is not laid out as ``x`` (``Partial`` where
+    each rank's gradient is its share of a sum). The gradient reaches
+    ``x`` contiguous: a local gradient laid out otherwise (a product's
+    transposed result) would fail the views ``DTensor`` runs on it."""
+    return _ContiguousGrad.apply(x.to_local(grad_placements=grad_placements))
+
+
+def shard_index(mesh, dims: Sequence[int]) -> int:
+    """This rank's index among the shards that the mesh dimensions
+    ``dims`` (in the mesh's order) cut a tensor dimension into, the first
+    major, as ``DTensor`` lays several ``Shard``s of one dimension out."""
+    coord = mesh.get_coordinate()
+    idx = 0
+    for i in dims:
+        idx = idx * mesh.size(i) + coord[i]
+    return idx
+
+
+def contiguous_strides(shape: Sequence[int]) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``, made without a
+    tensor (a dry-run counts every tensor made while a step runs)."""
+    strides, n = [], 1
+    for d in reversed(tuple(shape)):
+        strides.append(n)
+        n *= max(1, d)
+    return tuple(reversed(strides))
+
+
+def on_mesh_of(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x``, a plain tensor every rank holds whole, as a replicated
+    ``DTensor`` on ``like``'s mesh where ``like`` is a ``DTensor`` (no
+    communication; autograd passes through); else ``x`` itself."""
+    if not is_dtensor(like):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def view_heads(x: torch.Tensor, shape: Sequence[int],
+               logical: str) -> torch.Tensor:
+    """``x.reshape(shape)``, a view that splits ``x``'s dimension 2 into
+    ``shape[2]`` heads (by the ``logical`` heads axis) and what follows:
+    (B, S, heads·head_dim) into (B, S, heads, head_dim), or GQA's (B, S,
+    H, D) into (B, S, Hkv, group, D). Under a ctx a ``DTensor`` is first
+    laid out with its dimension 2 sharded as ``logical`` resolves for
+    ``shape[2]`` heads, so that the view splits whole heads: where the
+    heads do not divide the mesh axis (8 KV heads on a 16-way "model"
+    axis) it falls back to replicated, as the reference's rules resolve
+    ``kv_heads``. A plain tensor, or no ctx, is a plain reshape."""
+    ctx = _CTX.get()
+    if ctx is not None and is_dtensor(x):
+        spec = ctx.spec(("batch", "seq", logical), tuple(shape[:3]))
+        want = placements(ctx.mesh, spec, any_order=ctx.any_order)
+        if tuple(x.placements) != want:
+            x = x.redistribute(ctx.mesh, want)
+    return x.reshape(*shape)
 
 
 # -- parameter logical axes --------------------------------------------------
@@ -311,4 +409,4 @@ def param_shardings(logical, shapes, ctx: ShardingCtx):
             if cand:
                 spec[cand[0]] = (fsdp_axes if len(fsdp_axes) > 1
                                  else fsdp_axes[0])
-    return NamedSharding(ctx.mesh, tuple(spec))
+    return NamedSharding(ctx.mesh, tuple(spec), ctx.any_order)

@@ -8,6 +8,7 @@ and whose optimizer leaves are dicts of tensors by parameter name."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -17,7 +18,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import wide
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
-from repro_torch.parallel import compression
+from repro_torch.parallel import compression, sharding
 
 
 @dataclasses.dataclass
@@ -91,13 +92,57 @@ def loss_fn(params: T.TransformerLM, cfg: ModelConfig, batch: dict
         raise ValueError("labels must cover the full (patch+text) sequence")
     valid = labels >= 0
     lab = torch.where(valid, labels, 0).long()
-    logp = torch.log_softmax(wide(logits), dim=-1)
-    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    if sharding.is_dtensor(logits):
+        nll = _nll_on_shards(logits, lab)
+    else:
+        logp = torch.log_softmax(wide(logits), dim=-1)
+        nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
     denom = torch.clamp(valid.sum(), min=1)
     ce = torch.where(valid, nll, 0.0).sum() / denom
     total = ce + aux
     return total, {"loss": total.detach(), "ce": ce.detach(),
                    "aux": aux.detach(), "tokens": denom.float()}
+
+
+def _nll_on_shards(logits: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
+    """The per-token ``-log softmax(logits)[lab]`` of ``DTensor`` logits
+    (B, S, V), on each rank's own shards: its batch rows, and where the
+    vocab is split its vocab slice, whose log-sum-exp and target logit
+    join the other slices' by an all-reduce of (B, S) values (Megatron's
+    vocab-parallel cross entropy). Gathering the vocab, or differentiating
+    ``gather`` on a ``DTensor``, would hold the whole logits on a rank.
+    With the vocab whole on the rank it is the unsharded arithmetic."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    place = [Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(2)
+             else Replicate() for p in logits.placements]
+    if tuple(logits.placements) != tuple(place):
+        logits = logits.redistribute(mesh, place)
+    rows = [p if p.is_shard(0) else Replicate() for p in place]
+    lab = (lab.redistribute(mesh, rows).to_local() if sharding.is_dtensor(lab)
+           else sharding.local_chunk(lab, mesh, rows))[..., None]
+    x = wide(sharding.to_local(logits))
+    vocab = [i for i, p in enumerate(place) if p.is_shard(2)]
+    if math.prod(mesh.size(i) for i in vocab) == 1:
+        nll = -torch.gather(torch.log_softmax(x, dim=-1), -1, lab)[..., 0]
+        return DTensor.from_local(nll, mesh, rows, run_check=False)
+
+    def across(t, op):
+        """(B, S) local values reduced over the vocab slices."""
+        share = [Partial(op) if i in vocab else p for i, p in enumerate(rows)]
+        return DTensor.from_local(t, mesh, share, run_check=False
+                                  ).redistribute(mesh, rows).to_local()
+
+    width = x.shape[-1]
+    lo = sharding.shard_index(mesh, vocab) * width
+    m = across(x.detach().amax(dim=-1, keepdim=True), "max")
+    lse = torch.log(across(torch.exp(x - m).sum(-1, keepdim=True),
+                           "sum")) + m
+    mine = (lab >= lo) & (lab < lo + width)
+    target = torch.where(mine, torch.gather(
+        x, -1, torch.clamp(lab - lo, 0, width - 1)), 0.0)
+    nll = (lse - across(target, "sum"))[..., 0]
+    return DTensor.from_local(nll, mesh, rows, run_check=False)
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *,

@@ -50,9 +50,9 @@ from repro_torch.core import tracecache
 from repro_torch.models.convert import params_from_jax
 
 ROOT = Path(__file__).resolve().parents[1]
-#: the reference's experiment that the port does not carry yet: the TPU
-#: roofline (ROADMAP.md queue 1 item 11)
-NOT_PORTED = ("tpu_roofline",)
+#: the reference's experiments that the port does not carry: none since
+#: the TPU roofline came with the dry-run
+NOT_PORTED = ()
 SERVING = ("serve_paging", "serve_fleet", "serve_workload", "serve_tiers",
            "serve_faults")
 
@@ -121,20 +121,26 @@ def _port(quick: bool, names, calls: list | None = None) -> dict:
 
 
 @pytest.fixture(scope="module")
-def quick_records():
+def quick_records(tmp_path_factory):
     names = sorted({n for n, _ in PAIRS})
     calls: list[str] = []
-    port = _port(True, names, calls)
+    # tpu_roofline reads dry-run records where the reference reads its
+    # own; with none on either side both fall back to the analytic cells
+    from repro_torch.benchmarks import tpu_roofline
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tpu_roofline, "DRYRUN_ROOT",
+                   str(tmp_path_factory.mktemp("no_dryrun")))
+        port = _port(True, names, calls)
     return _reference(True, names), port, calls
 
 
 def test_the_port_registers_the_reference_s_experiments_but_two():
-    """All of the reference's experiments but ``NOT_PORTED`` (one since
-    the serving mesh came; the name is kept)."""
+    """All of the reference's experiments but ``NOT_PORTED`` (none since
+    the dry-run came; the name is kept)."""
     jreg.discover()
     want = [(e.name, d) for e in jreg.all_experiments() for d in e.devices
             if e.name not in NOT_PORTED]
-    assert PAIRS == want and len(PAIRS) == 36
+    assert PAIRS == want and len(PAIRS) == 37
     for e in reg.all_experiments():
         j = jreg.get(e.name)
         assert (e.title, e.section, e.artifact, e.tags, dict(e.expected)) \
@@ -231,10 +237,10 @@ def test_select_filters(scratch_registry):
 
 
 def test_discover_skips_the_helpers_and_registers_all_fifteen():
-    """All the port's experiments: sixteen since serve_sharded (the name
-    is kept)."""
+    """All the port's experiments: seventeen since tpu_roofline (the name
+    is kept); ``run``, the CSV wrapper, registers nothing."""
     mods = reg.discover()
-    assert "common" not in mods and len(mods) == 16
+    assert "common" not in mods and "run" not in mods and len(mods) == 17
     assert sorted(mods) == sorted(reg.REGISTRY)
     for e in reg.all_experiments():
         assert e.devices, e.name
@@ -435,16 +441,16 @@ def experiments_unchanged():
 
 def test_cli_quick_run_in_a_spawned_pool_is_the_serial_run(
         tmp_path, experiments_unchanged):
-    """36 PASS through ``python -m repro_torch.bench`` on two spawned
+    """37 PASS through ``python -m repro_torch.bench`` on two spawned
     workers, the same records in the same order as a serial run."""
     out = tmp_path / "quick.json"
     p = _cli("run", "--quick", "--strict", "--torch-device", "cpu",
              "--no-csv", "--jobs", "2", "--no-trace-cache", "--out",
              str(out))
     assert p.returncode == 0, p.stderr
-    assert "36 PASS, 0 DEVIATION, 0 ERROR" in p.stderr
+    assert "37 PASS, 0 DEVIATION, 0 ERROR" in p.stderr
     payload = json.loads(out.read_text())
-    assert payload["summary"] == {PASS: 36, DEVIATION: 0, INFO: 0, ERROR: 0}
+    assert payload["summary"] == {PASS: 37, DEVIATION: 0, INFO: 0, ERROR: 0}
     assert payload["kernel_launches"] == dict.fromkeys(
         runner.KERNELS, 0)
     serial = run_experiments(RunOptions(quick=True, torch_device="cpu"))
@@ -460,17 +466,21 @@ def test_cli_run_without_a_torch_device_needs_the_card(experiments_unchanged):
     assert "no CUDA card" in p.stderr
 
 
-def test_cli_list_report_and_docs(tmp_path, capsys, experiments_unchanged):
+def test_cli_list_report_and_docs(tmp_path, capsys, monkeypatch,
+                                  experiments_unchanged):
     assert cli.main(["list"]) == 0
     out = capsys.readouterr().out
-    assert out.startswith("16 experiments (16 registered):")
-    assert "table5_cache_params" in out and "tpu_roofline" not in out
+    assert out.startswith("17 experiments (17 registered):")
+    assert "table5_cache_params" in out and "tpu_roofline" in out
     path = str(ROOT / "experiments" / "bench" / "latest.json")
     assert cli.main(["report", path, "-o", str(tmp_path / "r.md")]) == 0
     assert (tmp_path / "r.md").read_text() == jreport.render_report(
         jresult.load_artifact(path))
-    assert cli.main(["docs", "--check"]) == 2
-    assert "queue 1 item 11" in capsys.readouterr().err
+    monkeypatch.setattr(cli, "DOCS_ROOT", str(tmp_path / "docs"))
+    assert cli.main(["docs"]) == 0
+    assert cli.main(["docs", "--check"]) == 0
+    assert sorted(p.name for p in (tmp_path / "docs").iterdir()) == [
+        "cli.md", "experiments.md", "profiles.md", "serving.md"]
 
 
 def test_cli_run_writes_its_report_and_fails_strict_on_a_deviation(

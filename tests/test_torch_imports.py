@@ -24,7 +24,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "examples" / "torch_quickstart.py",
     ROOT / "examples" / "torch_sharded_serve.py",
     ROOT / "examples" / "torch_continuous_batching.py",
-    ROOT / "examples" / "torch_serve_batch.py"]
+    ROOT / "examples" / "torch_serve_batch.py",
+    ROOT / "examples" / "torch_autotune_attention.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -44,6 +45,32 @@ def test_no_jax_or_repro_imports(path):
             if node.module and _forbidden(node.module):
                 bad.append(node.module)
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_the_port_has_every_module_experiment_and_example():
+    """Every module of ``src/repro`` has a counterpart under the same name
+    in ``src/repro_torch`` (the batched engine's ``core/cachesim_jax.py``
+    is ``core/cachesim_torch.py``), but ``jaxcache.py``, the XLA compile
+    cache: the port compiles nothing through XLA, and its nvcc builds are
+    cached by source hash in ``kernels/_build.py``. Every module of the
+    experiment package ``benchmarks/`` has one in
+    ``repro_torch/benchmarks/``, every example a ``torch_`` twin, and
+    every port file is walked."""
+    ref = {p.relative_to(ROOT / "src" / "repro")
+           for p in (ROOT / "src" / "repro").rglob("*.py")}
+    port = {p.relative_to(ROOT / "src" / "repro_torch")
+            for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    renamed = {"core/cachesim_jax.py": "core/cachesim_torch.py"}
+    assert {renamed.get(str(p), str(p)) for p in ref} - {
+        str(p) for p in port} == {"jaxcache.py"}
+    bench = {p.name for p in (ROOT / "benchmarks").glob("*.py")}
+    assert bench <= {p.name for p in (ROOT / "src" / "repro_torch" /
+                                      "benchmarks").glob("*.py")}
+    examples = {p.name for p in (ROOT / "examples").glob("*.py")
+                if not p.name.startswith("torch_")}
+    twins = {p.name for p in (ROOT / "examples").glob("torch_*.py")}
+    assert {f"torch_{n}" for n in examples} == twins
+    assert {ROOT / "examples" / n for n in twins} <= set(PORT_FILES)
 
 
 def test_guard_sees_the_whole_port():
@@ -73,7 +100,10 @@ def test_guard_sees_the_whole_port():
             "fault.py", "loop.py", "compression.py", "train.py",
             "torch_quickstart.py", "sharding.py", "mesh.py",
             "serve_sharded.py", "torch_sharded_serve.py",
-            "torch_continuous_batching.py", "torch_serve_batch.py"} <= names
+            "torch_continuous_batching.py", "torch_serve_batch.py",
+            "dryrun.py", "perf.py", "roofline.py", "docsgen.py",
+            "tpu_roofline.py", "run.py", "dtensor_tools.py",
+            "torch_autotune_attention.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {f"src/repro_torch/{m}.py" for m in (
         "optim/__init__", "optim/adamw", "data/__init__", "data/pipeline",

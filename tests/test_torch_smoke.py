@@ -67,6 +67,67 @@ def test_busy_from_trace_unions_overlapping_spans():
     assert got["top_kernels_ms"][0] == ["gemm", pytest.approx(0.015)]
 
 
+class _FakeTorch:
+    """What the trace helpers ask of torch: a synchronise."""
+    class cuda:
+        @staticmethod
+        def synchronize():
+            pass
+
+
+def _blind_or_not(mod, kernels, monkeypatch):
+    """Patch ``mod`` so that each trace holds the settling spins' and the
+    window's launches, with device events only for ``kernels`` (a name
+    each, correlated with the window's first launches), and every event
+    mean reads 1.25 ms."""
+    spins = mod.SETTLING_CALLS
+
+    def traced(torch, fn, path):
+        fn()
+        n = 2 * spins + 20
+        events = [_launch("cudaLaunchKernel", c) for c in range(1, n + 1)]
+        return events + [_kernel(k, spins + 1 + i, i, 3)
+                         for i, k in enumerate(kernels)]
+
+    monkeypatch.setattr(mod, "traced", traced)
+    monkeypatch.setattr(mod, "time_ms", lambda torch, fn, iters, warmup=3:
+                        1.25)
+
+
+def test_device_ms_times_with_events_where_the_profiler_is_blind(
+        monkeypatch, capsys):
+    """Every attempt's launches without a device event: the event mean
+    stands in, flagged, and a warning names the kernel."""
+    mod = smoke()
+    _blind_or_not(mod, [], monkeypatch)
+    ms, info = mod.device_ms(_FakeTorch, lambda: None, 20, "flash_wgmma")
+    assert ms == 1.25
+    assert info["blind"] and info["source"] == "cuda_events"
+    assert info["attempts"] == mod.TRACE_ATTEMPTS and not info["complete"]
+    assert "flash_wgmma" in capsys.readouterr().err
+
+
+def test_device_ms_still_fails_where_the_trace_misses_only_the_kernel(
+        monkeypatch):
+    """A trace that holds device events, none of them the named kernel's,
+    is not blind: it fails as before."""
+    mod = smoke()
+    _blind_or_not(mod, ["other"] * 20, monkeypatch)
+    with pytest.raises(RuntimeError, match="no device event"):
+        mod.device_ms(_FakeTorch, lambda: None, 20, "flash_wgmma")
+
+
+def test_copy_turns_take_the_event_turns_where_the_profiler_is_blind(
+        monkeypatch):
+    mod = smoke()
+    _blind_or_not(mod, [], monkeypatch)
+    got = mod.copy_times_in_turns(_FakeTorch, lambda: None, lambda: None,
+                                  "memcpy_kernel", rounds=5, calls=10)
+    assert got["device_trace"]["source"] == "cuda_events"
+    assert got["device_ms"] == got["ms"] == 1.25
+    assert got["turns"]["device_ms"] == got["turns"]["event_ms"]
+
+
 @pytest.mark.parametrize("n,w,stride,ways", [
     (1024, 32, 1, 1), (1024, 32, 2, 2), (1024, 32, 8, 8), (1024, 32, 32, 32),
     (1024, 32, 33, 1), (1024, 32, 64, 16), (1024, 32, 128, 8),
