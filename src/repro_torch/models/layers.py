@@ -25,6 +25,7 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import sharding
@@ -252,6 +253,7 @@ def _heads_shard(ctx, heads_ax) -> int:
         ctx.mesh, [ctx.mesh.mesh_dim_names.index(a) for a in axes])
 
 
+@tracing.spanned("attn.kv_write")
 def _paged_scatter(pages: torch.Tensor, page_table: torch.Tensor,
                    positions: torch.Tensor, vals: torch.Tensor
                    ) -> torch.Tensor:
@@ -290,6 +292,7 @@ def _paged_scatter(pages: torch.Tensor, page_table: torch.Tensor,
     return pages
 
 
+@tracing.spanned("attn.kv_read")
 def _paged_gather(pages: torch.Tensor, page_table: torch.Tensor
                   ) -> torch.Tensor:
     """Gather each slot's pages back into a (B, P*page_len, ...) view.
@@ -331,6 +334,7 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
+@tracing.spanned("attn.core")
 def _sdpa(q, k, v, cfg: ModelConfig, *, causal: bool,
           kv_len_mask: torch.Tensor | None = None) -> torch.Tensor:
     """q: (B,S,H,D); k/v: (B,T,Hkv,D).  kv_len_mask: (B,T) valid-slot mask
@@ -648,19 +652,20 @@ def apply_mla(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         # fold W_uk into the query and W_uv into the output, so attention
         # runs against the compressed cache (the same math):
         #   qᵀ(c W_uk) = (q W_ukᵀ)ᵀ c      p (c W_uv) = (p c) W_uv
-        w_uk = p["w_uk"].reshape(r, h, nd).float()
-        w_uv = p["w_uv"].reshape(r, h, vd).float()
-        q_abs = torch.einsum("bshd,rhd->bshr", q_nope.float(), w_uk)
-        scale = (nd + rd) ** -0.5
-        scores = (torch.einsum("bshr,btr->bhst", q_abs, c_kv.float())
-                  + torch.einsum("bshd,btd->bhst", q_rope.float(),
-                                 k_rope.float())) * scale
-        vm = (valid[:, None, None, :] if valid.ndim == 2
-              else valid[:, None])      # (B,1,S,T) per-query paged mask
-        scores = torch.where(vm, scores, -1e30)
-        pr = torch.softmax(scores, dim=-1)
-        ctx = torch.einsum("bhst,btr->bshr", pr, c_kv.float())
-        o = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
+        with tracing.span("attn.core"):
+            w_uk = p["w_uk"].reshape(r, h, nd).float()
+            w_uv = p["w_uv"].reshape(r, h, vd).float()
+            q_abs = torch.einsum("bshd,rhd->bshr", q_nope.float(), w_uk)
+            scale = (nd + rd) ** -0.5
+            scores = (torch.einsum("bshr,btr->bhst", q_abs, c_kv.float())
+                      + torch.einsum("bshd,btd->bhst", q_rope.float(),
+                                     k_rope.float())) * scale
+            vm = (valid[:, None, None, :] if valid.ndim == 2
+                  else valid[:, None])      # (B,1,S,T) per-query paged mask
+            scores = torch.where(vm, scores, -1e30)
+            pr = torch.softmax(scores, dim=-1)
+            ctx = torch.einsum("bhst,btr->bshr", pr, c_kv.float())
+            o = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
         o = constrain(o, "batch", "seq", "heads", "head_dim")
         o = o.reshape(b, s, h * vd).to(x.dtype)
         return x + (o @ p["wo"]).to(x.dtype), new_cache
@@ -767,59 +772,64 @@ def apply_moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig
     # index_add_ into a fresh buffer, and a whole routing keeps the
     # reference's capacity ranks over all tokens. Only the expert
     # products run sharded. Unsharded, both are the tensors themselves.
-    logits = sharding.full_tensor(wide(xt_sharded) @ p["router"])  # (T, E)
-    xt = sharding.full_tensor(xt_sharded)
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_i = top_p[:, :k], top_i[:, :k]                # (T, k)
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    with tracing.span("moe.route"):
+        logits = sharding.full_tensor(wide(xt_sharded) @ p["router"])  # (T, E)
+        xt = sharding.full_tensor(xt_sharded)
+        probs = torch.softmax(logits, dim=-1)
+        top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+        top_p, top_i = top_p[:, :k], top_i[:, :k]                # (T, k)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
-    # load-balance aux (Switch-style) + router z-loss
-    flat_e = top_i.reshape(-1)                               # (T·k,)
-    # per-expert counts by index_add_, not bincount (whose CUDA version
-    # reads the maximum back to the host, a sync per layer)
-    counts = torch.zeros((e,), dtype=torch.long, device=dev).index_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    me = probs.mean(dim=0)
-    ce = counts.float() / (t * k)
-    aux = e * torch.sum(me * ce) + cfg.router_z_coef * torch.mean(
-        torch.logsumexp(logits, dim=-1) ** 2)
+        # load-balance aux (Switch-style) + router z-loss
+        flat_e = top_i.reshape(-1)                               # (T·k,)
+        # per-expert counts by index_add_, not bincount (whose CUDA version
+        # reads the maximum back to the host, a sync per layer)
+        counts = torch.zeros((e,), dtype=torch.long, device=dev).index_add_(
+            0, flat_e, torch.ones_like(flat_e))
+        me = probs.mean(dim=0)
+        ce = counts.float() / (t * k)
+        aux = e * torch.sum(me * ce) + cfg.router_z_coef * torch.mean(
+            torch.logsumexp(logits, dim=-1) ** 2)
 
-    # capacity dispatch: rank of each (token, choice) within its expert
-    cap = moe_capacity(t, cfg)
-    order = torch.argsort(flat_e, stable=True)
-    starts = torch.cumsum(counts, 0) - counts
-    ranks_sorted = torch.arange(t * k, device=dev) - starts[flat_e[order]]
-    slot = torch.empty_like(ranks_sorted)
-    slot[order] = ranks_sorted
-    keep = slot < cap
-    tok = torch.arange(t * k, device=dev) // k
+        # capacity dispatch: rank of each (token, choice) within its expert
+        cap = moe_capacity(t, cfg)
+        order = torch.argsort(flat_e, stable=True)
+        starts = torch.cumsum(counts, 0) - counts
+        ranks_sorted = torch.arange(t * k, device=dev) - starts[flat_e[order]]
+        slot = torch.empty_like(ranks_sorted)
+        slot[order] = ranks_sorted
+        keep = slot < cap
+        tok = torch.arange(t * k, device=dev) // k
 
-    # dropped choices add zeros at (e-1, cap-1), as in the reference
-    buf = torch.zeros((e, cap, d), dtype=xt.dtype, device=dev)
-    buf.index_put_((torch.where(keep, flat_e, e - 1),
-                    torch.where(keep, slot, cap - 1)),
-                   torch.where(keep[:, None], xt[tok], 0), accumulate=True)
-    buf = constrain(sharding.on_mesh_of(buf, xt_sharded),
-                    "experts", "capacity", "embed")
+        # dropped choices add zeros at (e-1, cap-1), as in the reference
+        buf = torch.zeros((e, cap, d), dtype=xt.dtype, device=dev)
+        buf.index_put_((torch.where(keep, flat_e, e - 1),
+                        torch.where(keep, slot, cap - 1)),
+                       torch.where(keep[:, None], xt[tok], 0), accumulate=True)
+        buf = constrain(sharding.on_mesh_of(buf, xt_sharded),
+                        "experts", "capacity", "embed")
 
-    h = F.silu(torch.bmm(buf, p["moe_gate"])) * torch.bmm(buf, p["moe_up"])
-    h = constrain(h, "experts", "capacity", "mlp")
-    out_buf = torch.bmm(h, p["moe_down"])                    # (E, cap, d)
-    out_buf = sharding.full_tensor(
-        constrain(out_buf, "experts", "capacity", "embed"))
+    with tracing.span("moe.experts"):
+        h = F.silu(torch.bmm(buf, p["moe_gate"])) * torch.bmm(buf, p["moe_up"])
+        h = constrain(h, "experts", "capacity", "mlp")
+        out_buf = torch.bmm(h, p["moe_down"])                    # (E, cap, d)
+        out_buf = sharding.full_tensor(
+            constrain(out_buf, "experts", "capacity", "embed"))
+        shared = (apply_ffn(p, xt_sharded, cfg, prefix="shared_")
+                  if cfg.num_shared_experts else None)
 
-    gathered = out_buf[flat_e, torch.clamp(slot, max=cap - 1)]   # (T·k, d)
-    gathered = torch.where(keep[:, None], gathered, 0)
-    # the k choices of a token are adjacent rows: sum them in order
-    y = (gathered * top_p.reshape(-1)[:, None].to(xt.dtype)
-         ).reshape(t, k, d).sum(dim=1)
+    with tracing.span("moe.combine"):
+        gathered = out_buf[flat_e, torch.clamp(slot, max=cap - 1)]   # (T·k, d)
+        gathered = torch.where(keep[:, None], gathered, 0)
+        # the k choices of a token are adjacent rows: sum them in order
+        y = (gathered * top_p.reshape(-1)[:, None].to(xt.dtype)
+             ).reshape(t, k, d).sum(dim=1)
 
-    # the whole-tensor results rejoin the mesh, so that autograd hands
-    # their gradients back as plain tensors
-    y = sharding.on_mesh_of(y, xt_sharded)
-    aux = sharding.on_mesh_of(aux, xt_sharded)
-    if cfg.num_shared_experts:
-        y = y + apply_ffn(p, xt_sharded, cfg, prefix="shared_")
+        # the whole-tensor results rejoin the mesh, so that autograd hands
+        # their gradients back as plain tensors
+        y = sharding.on_mesh_of(y, xt_sharded)
+        aux = sharding.on_mesh_of(aux, xt_sharded)
+        if shared is not None:
+            y = y + shared
     y = constrain(y.reshape(b, s, d), "batch", "seq", "embed")
     return x + y.to(x.dtype), aux

@@ -20,6 +20,8 @@ from typing import Mapping
 
 import torch
 
+from repro_torch import tracing
+
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 Tensors = Mapping[str, torch.Tensor]
@@ -76,6 +78,7 @@ def global_norm(tree: Tensors) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+@tracing.spanned("optim.adamw")
 @torch.no_grad()
 def adamw_update(grads: Tensors, state: dict, params: Tensors,
                  cfg: AdamWConfig, lr, *, in_place: bool = False

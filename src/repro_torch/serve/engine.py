@@ -32,12 +32,14 @@ preempts the youngest request when the pool runs dry.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import sharding
@@ -63,6 +65,10 @@ class Request:
     slot: int | None = None
     prefill_pos: int = 0               # chunked prefill progress (paged)
     admit_seq: int = -1                # admission order (preemption victim)
+    # host clock (time.perf_counter) of the first submit to a paged engine
+    # and of the first admission there; preemption resets neither
+    submitted_at: float | None = None
+    admitted_at: float | None = None
 
     @property
     def done(self) -> bool:
@@ -309,10 +315,11 @@ class PagedServeEngine:
             return torch.as_tensor(a, dtype=torch.long).to(dev)
 
         with sharding.use(self._shard_ctx):
-            logits, self.cache = T.paged_step(
-                self.params, self.cfg, self.cache, put(toks), put(start),
-                put(tables), put(slot_ids),
-                None if seq_lens is None else put(seq_lens))
+            with tracing.span("engine.upload"):
+                args = (put(toks), put(start), put(tables), put(slot_ids),
+                        None if seq_lens is None else put(seq_lens))
+            logits, self.cache = T.paged_step(self.params, self.cfg,
+                                              self.cache, *args)
         return logits
 
     # -- bookkeeping --------------------------------------------------------
@@ -332,6 +339,8 @@ class PagedServeEngine:
             raise ValueError(
                 f"request {req.uid} can need {self._worst_case_pages(req)} "
                 f"pages; pool only has {self.alloc.capacity}")
+        if req.submitted_at is None:
+            req.submitted_at = time.perf_counter()
         self.waiting.append(req)
 
     def _sync_table(self, req: Request) -> None:
@@ -429,6 +438,8 @@ class PagedServeEngine:
             if req.admit_seq < 0:      # preempted requests keep seniority
                 req.admit_seq = self._admit_counter
                 self._admit_counter += 1
+            if req.admitted_at is None:
+                req.admitted_at = time.perf_counter()
             req.prefill_pos = 0
             req.generated = []
             self.page_tables[req.slot][:] = 0
@@ -439,30 +450,39 @@ class PagedServeEngine:
     def _prefill_tick(self) -> None:
         """One chunk of the oldest prefilling request."""
         req = self.prefilling[0]
-        plen = len(req.prompt)
-        start = req.prefill_pos
-        # the chunk's padded tail writes garbage up to the chunk boundary,
-        # so pages must cover it
-        if not self._ensure_pages(req, start + self.prefill_chunk):
-            return                      # stall; decode ticks will free pages
-        s_real = min(self.prefill_chunk, plen - start)
-        toks = np.zeros(self.prefill_chunk, dtype=np.int32)
-        toks[:s_real] = req.prompt[start:start + s_real]
-        logits = self._step(toks[None], np.array([start]),
-                            self.page_tables[req.slot][None],
-                            np.array([req.slot]), np.array([s_real]))
-        req.prefill_pos += s_real
-        if req.prefill_pos == plen:
-            tok = int(self.sampler(logits[0, s_real - 1]))
-            req.generated.append(tok)
-            self.last_tokens[req.slot] = tok
-            self.positions[req.slot] = plen
-            self.prefilling.popleft()
-            if self.hold_after_prefill and not req.done:
-                self.ready.append(req)
-            else:
-                self.active[req.slot] = req
-                self._maybe_finish(req.slot)
+        with tracing.span("engine.prefill", uid=req.uid):
+            plen = len(req.prompt)
+            start = req.prefill_pos
+            # the chunk's padded tail writes garbage up to the chunk
+            # boundary, so pages must cover it
+            if not self._ensure_pages(req, start + self.prefill_chunk):
+                return                  # stall; decode ticks will free pages
+            s_real = min(self.prefill_chunk, plen - start)
+            if tracing.enabled():
+                # one row, its whole page-table row gathered; the chunk's
+                # last query sees every position up to its own
+                tracing.count("kv.live", start + s_real)
+                tracing.count("kv.gathered",
+                              self.pages_per_seq * self.page_len)
+            toks = np.zeros(self.prefill_chunk, dtype=np.int32)
+            toks[:s_real] = req.prompt[start:start + s_real]
+            logits = self._step(toks[None], np.array([start]),
+                                self.page_tables[req.slot][None],
+                                np.array([req.slot]), np.array([s_real]))
+            req.prefill_pos += s_real
+            if req.prefill_pos == plen:
+                sampled = self.sampler(logits[0, s_real - 1])
+                with tracing.span("engine.sync"):
+                    tok = int(sampled)
+                req.generated.append(tok)
+                self.last_tokens[req.slot] = tok
+                self.positions[req.slot] = plen
+                self.prefilling.popleft()
+                if self.hold_after_prefill and not req.done:
+                    self.ready.append(req)
+                else:
+                    self.active[req.slot] = req
+                    self._maybe_finish(req.slot)
 
     def _maybe_finish(self, slot: int) -> None:
         req = self.active.get(slot)
@@ -473,6 +493,7 @@ class PagedServeEngine:
             self.free_slots.append(slot)
             self.finished.append(req)
 
+    @tracing.spanned("engine.decode")
     def _decode_tick(self) -> None:
         # grow every decoding request to cover its next write position; a
         # request that cannot get a page even after preempting younger
@@ -490,11 +511,20 @@ class PagedServeEngine:
         # slot row so their garbage writes cannot corrupt live state
         mask = np.zeros(self.max_slots, dtype=bool)
         mask[list(self.active)] = True
+        if tracing.enabled():
+            # every row gathers its whole page-table row; a live row's
+            # query sees its positions up to the one it writes
+            tracing.count("kv.live", int(self.positions[mask].sum())
+                          + len(self.active))
+            tracing.count("kv.gathered", self.max_slots
+                          * self.pages_per_seq * self.page_len)
         tables = np.where(mask[:, None], self.page_tables, 0)
         slot_ids = np.where(mask, np.arange(self.max_slots), self.max_slots)
         logits = self._step(self.last_tokens[:, None], self.positions,
                             tables, slot_ids, None)
-        sampled = self.sampler(logits[:, 0]).cpu().numpy()
+        sampled = self.sampler(logits[:, 0])
+        with tracing.span("engine.sync"):
+            sampled = sampled.cpu().numpy()
         for slot, req in list(self.active.items()):
             tok = int(sampled[slot])
             req.generated.append(tok)
@@ -503,6 +533,7 @@ class PagedServeEngine:
             self.decoded_tokens += 1
             self._maybe_finish(slot)
 
+    @tracing.spanned("engine.step")
     def step(self) -> int:
         """Admit + at most one prefill chunk + one batched decode step.
         Returns the number of live (prefilling or decoding) requests."""

@@ -13,7 +13,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import wide
@@ -169,8 +169,10 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *,
     def value_and_grads(params, batch):
         names, leaves = zip(*params.named_parameters())
         with torch.enable_grad():
-            total, metrics = loss_fn(params, cfg, batch)
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            with tracing.span("train.forward"):
+                total, metrics = loss_fn(params, cfg, batch)
+            with tracing.span("train.backward"):
+                grads = torch.autograd.grad(total, leaves, allow_unused=True)
         # a parameter the batch does not reach (a front end the batch has
         # no input for) gets a zero gradient, as jax.grad gives it
         return metrics, {k: torch.zeros_like(p) if g is None else g
