@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only paged_decode]
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 nvidia-smi. It builds every kernel of the port from
@@ -10,7 +10,7 @@ prints one JSON record on a line of its own; any failure raises and exits
 non-zero. Phases:
 
   device   the card's name and power limit (nvidia-smi) and torch's name
-  build    all seven kernels, one nvcc each, started together; ptxas
+  build    all eight kernels, one nvcc each, started together; ptxas
            registers, shared memory and spills; the HGMMA instructions in
            the bf16 flash kernels' SASS (cuobjdump), which must be there
   check    the flash kernel against its plain PyTorch version on the card,
@@ -32,6 +32,18 @@ non-zero. Phases:
            and mistral-large's widths and a width that takes the scalar
            tail, float32 and bfloat16, and its ValueError on CUDA tensors
   times    rmsnorm beside plain, torch.nn.functional.rms_norm and bound ms
+  check    the paged decode kernel against its plain version (the gather
+           and the masked plain branch), bfloat16 within one step and
+           float32, at every GQA decoder's heads (pages of 16, an idle
+           row), at positions 0, 1, 255-257 and 4,095 on pages of 256 and
+           of 5, rows on their own and on shared pages; idle rows zeros;
+           its ValueError at head dim 256
+  times    the same at the granite-8b.chat cell's decode shape (64 slots,
+           32/8 heads of 128, pages of 256, 24 rows live at the chat mix's
+           lengths, spread over the slots), checked as above: kernel ms, device ms (both its kernels), the bytes
+           bound, plain ms and SDPA over pre-gathered K/V (library_ms, a
+           yardstick the port never calls); its launches on the granite
+           smoke engine, one a layer a decode step and none a chunk
   check    the measurement kernels (pchase, memcpy, dbuf_copy, strided)
            against their plain versions on the card, exactly, at the
            paper's sizes (1 GiB copies, a 64 MB chase, the strided probe
@@ -78,10 +90,13 @@ non-zero. Phases:
            kernels)
   paged    the same weights and workload through the launcher's paged
            engine (pages sized by the cost model: 128 tokens), checked
-           after every tick, with no leaked page, at most a page of slack
-           and no flash launch (paged attention is masked, so it takes the
-           plain branch); a warm window of its decode ticks under
-           torch.profiler; the same workload on a pool sized from its own
+           after every tick, with no leaked page, at most a page of slack,
+           no flash launch (a prefill chunk is masked, so it takes the
+           plain branch) and one paged decode launch a layer a decode
+           step; the same run with the decode attention on its plain
+           version (the parallel phase's oracle; its tokens beside the
+           kernel's, bf16, not gated); a warm window of its decode ticks
+           under torch.profiler; the same workload on a pool sized from its own
            lengths so that it must preempt; and in float32 at 4 layers, the
            first decode logits of the paged engine against the dense
            engine's, gated
@@ -101,8 +116,9 @@ non-zero. Phases:
   parallel the port's parallelism on a 1-device mesh (a world-1 NCCL
            group of this process): the paged phase's weights and
            workload served with the KV pool's leaves as DTensors on the
-           mesh, tokens and ticks bit for bit the paged engine's, gather
-           shards 1, no leaked page and the pool's storage unchanged on
+           mesh, tokens and ticks bit for bit the paged engine's on the
+           plain decode attention (the arithmetic a mesh's pool keeps),
+           gather shards 1, no leaked page and the pool's storage unchanged on
            every tick, its tok/s beside the unsharded run's (host clock),
            and a warm window of 8 decode ticks under torch.profiler
            beside the paged phase's;
@@ -227,6 +243,10 @@ LOGITS_REL_RMS_TOL = 1e-3
 #: the dense prefill, the plain masked branch in the paged chunks), whose
 #: float32 difference is about 1e-6 of a logit
 PAGED_REL_RMS_TOL = 1e-4
+#: paged decode against its plain version in bfloat16, beside TOL: one
+#: bfloat16 step of the value (both round nearly the same f32 sum once),
+#: with an absolute floor for outputs near 0, whose sums cancel
+PAGED_BF16_STEP = dict(rtol=2 ** -7, atol=1e-4)
 #: calls in one torch.profiler trace of a kernel's device time
 PROFILED_CALLS = 20
 #: traces taken of one window before a trace that stays short is flagged
@@ -808,6 +828,213 @@ def rmsnorm_phase(torch, dev, card: str) -> dict:
             "times_65536x4096": times[65536], "card": card}
 
 
+def count_steps(eng) -> dict:
+    """From now on, count a paged engine's model steps by kind: one-token
+    decode steps and prefill chunks."""
+    steps = {"decode": 0, "chunk": 0}
+    real = eng._step
+
+    def counted(toks, *rest):
+        steps["decode" if toks.shape[1] == 1 else "chunk"] += 1
+        return real(toks, *rest)
+    eng._step = counted
+    return steps
+
+
+def chat_positions(rows: int, live: int, seed: int = 0) -> list[int]:
+    """Decode positions of ``rows`` slots, ``live`` of them live, drawn as
+    the granite-8b.chat cell's mix draws its lengths (prompts Gamma(2,
+    mean 1,216) in [16, 3,072], outputs Gamma(1.5, mean 164) in [2,
+    1,024]): a live row stands a uniform share into its output. Idle rows
+    get -1 (the caller points them at the scratch page). Live and idle
+    rows are spread over all the slots, as the engine's free list leaves
+    them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prompt = np.clip(rng.gamma(2.0, 1216 / 2.0, live), 16, 3072)
+    output = np.clip(rng.gamma(1.5, 164 / 1.5, live), 2, 1024)
+    pos = (prompt + rng.uniform(0, 1, live) * output).astype(int)
+    slots = np.full(rows, -1)
+    slots[rng.permutation(rows)[:live]] = pos
+    return [int(p) for p in slots]
+
+
+def paged_decode_phase(torch, dev, card: str) -> dict:
+    """Check the paged decode kernel against its plain version on the card
+    (bfloat16 and float32, every GQA decoder's heads, the edges of a page,
+    shared pages, idle rows), time it at the granite-8b.chat cell's decode
+    shape beside its bytes bound, the plain version and SDPA over
+    pre-gathered K/V (a yardstick the port never calls), and count its
+    launches on the granite smoke engine. Returns its kernel record; its
+    launches on the serving path are filled in after that path has run."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import PagedServeEngine, Request
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def inputs(h, hkv, d, positions, page_len, pages, dtype, shared=False):
+        """q, pools, tables, positions; rows at -1 are idle (page 0)."""
+        b = len(positions)
+        num_pages = 1 + b * pages
+        order = torch.randperm(num_pages - 1, device=dev, generator=gen) + 1
+        table = order.reshape(b, pages)
+        if shared:
+            table = table[:1].expand(b, -1).clone()
+        idle = torch.tensor([p < 0 for p in positions], device=dev)
+        table = torch.where(idle[:, None], 0, table)
+        pos = torch.tensor([max(p, 0) for p in positions], device=dev)[:, None]
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                   for s in ((b, 1, h, d), (num_pages, page_len, hkv, d),
+                             (num_pages, page_len, hkv, d)))
+        return q, k, v, table, pos
+
+    shapes = sorted({(c.num_heads, c.num_kv_heads, c.head_dim)
+                     for a in configs.list_archs()
+                     for c in (configs.get_config(a),
+                               configs.get_smoke_config(a))
+                     if c.num_heads and not (c.use_mla or c.is_encoder)})
+    edges = [0, 1, 255, 256, 257, 4095, -1]
+    cases = [(h, hkv, d, [37, 0, 300, -1, 1000, 255], 16, 64, False)
+             for h, hkv, d in shapes + [(16, 1, 64)]]
+    cases += [(32, 8, 128, edges, pl, -(-4096 // pl), shared)
+              for pl in (256, 5) for shared in (False, True)]
+    errs = {}
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        for h, hkv, d, positions, pl, pages, shared in cases:
+            args = inputs(h, hkv, d, positions, pl, pages, dtype, shared)
+            before = pd.launches
+            got = pd.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            want = pd.paged_decode_plain(*args)
+            err = (got.float() - want.float()).abs().max().item()
+            ok = (pd.launches == before + 1 and torch.allclose(
+                got.float(), want.float(), atol=TOL[dname], rtol=TOL[dname]))
+            extra = {}
+            if dname == "bfloat16":
+                # one bfloat16 step of the value, with a floor of 1e-4 for
+                # outputs near 0 (tests/test_torch_paged_decode.py)
+                extra["bf16_step"] = torch.allclose(
+                    got.float(), want.float(), **PAGED_BF16_STEP)
+                extra["max_ulps"] = int(ref.bf16_ulp_distance(got, want).max())
+                ok = ok and extra["bf16_step"]
+            idle = [i for i, p in enumerate(positions) if p < 0]
+            ok = ok and bool(torch.isfinite(got).all()) and all(
+                not got[i].any() for i in idle)
+            errs[(dname, h, hkv, d, pl, shared)] = err
+            record("check", kernel="paged_decode", dtype=dname,
+                   heads=[h, hkv], head_dim=d, page_len=pl, shared=shared,
+                   positions=positions, max_abs_err=err, tol=TOL[dname],
+                   ok=ok, **extra)
+            check(ok, f"paged_decode disagrees with its plain version "
+                      f"({dname}, heads {h}/{hkv}, D {d}, page_len {pl})")
+    q, k, v, table, pos = inputs(4, 2, 256, [3], 8, 1, torch.float32)
+    try:
+        pd.paged_decode_attention(q, k, v, table, pos)
+        raised = False
+    except ValueError:
+        raised = True
+    record("check", kernel="paged_decode", head_dim_value_error=raised)
+    check(raised, "paged_decode at head dim 256 did not raise ValueError")
+
+    # -- times at the granite-8b.chat cell's decode shape: 64 slots, 32/8
+    # heads of 128, pages of 256, 16 a row; 24 rows live and spread over
+    # the 64, positions drawn from the chat mix (about the cell's 30k live
+    # positions a tick)
+    positions = chat_positions(64, 24)
+    q, k, v, table, pos = inputs(32, 8, 128, positions, 256, 16,
+                                 torch.bfloat16)
+    live = sum(p + 1 for p in positions if p >= 0)
+    moved = live * 2 * 8 * 128 * 2 + 2 * q.numel() * 2
+    fn = lambda: pd.paged_decode_attention(q, k, v, table, pos)
+    plain = lambda: pd.paged_decode_plain(q, k, v, table, pos)
+    kg = k[table].reshape(64, 4096, 8, 128).transpose(1, 2)
+    vg = v[table].reshape(64, 4096, 8, 128).transpose(1, 2)
+    q4 = q.transpose(1, 2)
+    mask = (torch.arange(4096, device=dev)[None, :] <= pos)[:, None, None, :]
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, kg, vg, attn_mask=mask, enable_gqa=True)
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    # held to the plain version like the cases above: live rows past slot
+    # 32 take the row-start scan's carry from one 32-row chunk to the next
+    idle = [i for i, p in enumerate(positions) if p < 0]
+    cell_ok = (torch.allclose(got.float(), want.float(),
+                              atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+               and torch.allclose(got.float(), want.float(),
+                                  **PAGED_BF16_STEP)
+               and bool(torch.isfinite(got).all())
+               and all(not got[i].any() for i in idle))
+    record("check", kernel="paged_decode", dtype="bfloat16",
+           heads=[32, 8], head_dim=128, page_len=256, shared=False,
+           positions=positions,
+           max_abs_err=(got.float() - want.float()).abs().max().item(),
+           tol=TOL["bfloat16"], bf16_step=PAGED_BF16_STEP, ok=cell_ok)
+    check(cell_ok, "paged_decode disagrees with its plain version at the "
+                   "granite-8b.chat cell's decode shape")
+    t = dict(ms=time_ms(torch, fn, 50))
+    t["device_ms"], t["device_trace"] = device_ms(torch, fn, PROFILED_CALLS)
+    t["plain_ms"] = time_ms(torch, plain, 5)
+    t["library_ms"] = time_ms(torch, library, 20)
+    t["library_device_ms"], t["library_device_trace"] = device_ms(
+        torch, library, PROFILED_CALLS)
+    t["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+    t["bound_by"] = "bytes"
+    t["bytes"] = moved
+    t["live_positions"] = live
+    t["device_over_bound"] = t["device_ms"] / t["bound_ms"]
+    t["achieved_tb_per_s"] = moved / (t["device_ms"] * 1e-3) / 1e12
+    t["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+    t["launch"] = pd.launch_shape(q, k)
+    record("times", kernel="paged_decode", dtype="bfloat16",
+           shape="q (64, 1, 32, 128), pools (1025, 256, 8, 128), table "
+                 "(64, 16)", positions=positions, card=card, **t)
+    del kg, vg, k, v
+    torch.cuda.empty_cache()
+
+    # -- launches on the granite smoke engine (float32, 2 layers): one a
+    # layer a decode step, none for a prefill chunk
+    cfg = configs.get_smoke_config("granite-8b")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    eng = PagedServeEngine(cfg, params, max_slots=4, max_len=64, page_len=8)
+    rng = np.random.default_rng(0)
+    for uid, (plen, n) in enumerate([(9, 12), (20, 5), (3, 20), (33, 8),
+                                     (12, 10)]):
+        eng.submit(Request(uid, rng.integers(cfg.vocab_size, size=plen)
+                           .astype(np.int32), n))
+    steps = count_steps(eng)
+    pd.reset_launches()
+    finished = eng.run_to_completion()
+    torch.cuda.synchronize()
+    smoke_launches = pd.launches
+    record("paged_decode", step="smoke_engine", arch=cfg.name,
+           layers=cfg.num_layers, requests=len(finished), **steps,
+           launches=smoke_launches)
+    check(len(finished) == 5, "the smoke engine did not finish its requests")
+    check(smoke_launches == cfg.num_layers * steps["decode"] > 0,
+          f"the smoke engine launched paged_decode {smoke_launches} times "
+          f"over {steps['decode']} decode steps of {cfg.num_layers} layers")
+    return {"name": "paged_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+            "replaces": None, "launches": None,
+            "smoke_engine_launches": smoke_launches,
+            "smoke_engine_steps": steps,
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "shape": "bf16 q (64, 1, 32, 128), pools (1025, 256, 8, 128), "
+                     f"{live} live positions in 24 of 64 rows",
+            "card": card}
+
+
 def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
                   ) -> dict:
     """Full-width granite-8b through the launcher's paged engine, on the
@@ -827,6 +1054,8 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
     from repro_torch.serve import paging
     from repro_torch.serve.engine import PagedServeEngine, ServeEngine
 
+    from repro_torch.kernels import paged_decode as pd
+
     kv_tok = kv_bytes_per_token(cfg)
     want_len = paging.choose_page_len(cfg, expected_tokens=768)
 
@@ -838,6 +1067,8 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
         with contextlib.redirect_stdout(out):
             eng = checked(serve._paged_engine(cfg, params, args))
             fa.reset_launches()
+            pd.reset_launches()
+            steps = count_steps(eng)
             torch.cuda.reset_peak_memory_stats()
             res = serve._engine_run(cfg, params, args, engine=eng)
         print(out.getvalue(), end="", flush=True)
@@ -857,6 +1088,8 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
                    max_slack_tokens=s["max_slack_tokens"],
                    pages_leaked=eng.alloc.allocated_pages,
                    flash_launches=fa.launches,
+                   paged_decode_launches=pd.launches,
+                   decode_steps=steps["decode"], chunk_steps=steps["chunk"],
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    # bf16, reported and not gated: the dense prefill runs
                    # flash, the paged chunks the plain masked attention,
@@ -879,14 +1112,43 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
               f"choose_page_len {want_len}")
         check(fa.launches == 0,
               f"the paged run launched flash {fa.launches} times")
+        check(pd.launches == cfg.num_layers * steps["decode"] > 0,
+              f"the paged run launched paged_decode {pd.launches} times "
+              f"over {steps['decode']} decode steps")
         return eng, rec, got
 
     eng, rec, got = run(None)
     record("paged", step="serve", max_len=768, slots=4, **rec)
+    # the same run with the decode attention on its plain version (the
+    # gather and the masked plain branch), the arithmetic that a pool on a
+    # mesh keeps: the parallel phase's bit-for-bit oracle
+    real = pd.paged_decode_attention
+    pd.paged_decode_attention = pd.paged_decode_plain
+    try:
+        args = argparse.Namespace(requests=8, slots=4, max_len=768, seed=0,
+                                  engine="paged", page_len=None,
+                                  num_pages=None, prefill_chunk=None)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            plain_res = serve._engine_run(cfg, params, args)
+    finally:
+        pd.paged_decode_attention = real
+    plain_got = {r.uid: r.generated for r in plain_res["finished"]}
+    record("paged", step="plain_decode_attention",
+           wall_ms=plain_res["wall_s"] * 1e3,
+           # bf16, reported and not gated: the kernel and the plain branch
+           # round their f32 sums in other orders
+           uids_equal_to_kernel_bf16=sum(
+               plain_got.get(u) == g for u, g in got.items()),
+           prefix_equal_to_kernel_bf16={
+               uid: [common_prefix(plain_got.get(uid, []), g), len(g)]
+               for uid, g in sorted(got.items())})
+    check(len(plain_got) == 8, "the plain decode run did not finish")
     oracle = dict(requests=8, slots=4, max_len=768, seed=0, tokens=got,
-                  ticks=rec["ticks"], page_len=eng.page_len,
-                  num_pages=eng.alloc.num_pages,
-                  tokens_per_s=rec["tokens_per_s"])
+                  plain_tokens=plain_got, ticks=rec["ticks"],
+                  page_len=eng.page_len, num_pages=eng.alloc.num_pages,
+                  tokens_per_s=rec["tokens_per_s"],
+                  paged_decode_launches=rec["paged_decode_launches"])
 
     # where the time goes: a warm window of 8 decode ticks, 4 slots busy
     prof = PagedServeEngine(cfg, params, max_slots=4, max_len=768)
@@ -949,6 +1211,7 @@ def fleet_phase(torch, dev, cfg, params, paged: dict, card: str,
     from repro_torch.kernels import batch_cache as bc
     from repro_torch.kernels import dbuf_copy, memcpy, pchase, rmsnorm
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import strided
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
@@ -963,7 +1226,7 @@ def fleet_phase(torch, dev, cfg, params, paged: dict, card: str,
 
     mods = {"flash_attention": fa, "pchase": pchase, "memcpy": memcpy,
             "dbuf_copy": dbuf_copy, "strided": strided, "rmsnorm": rmsnorm,
-            "batch_cache": bc}
+            "batch_cache": bc, "paged_decode": pd}
     fa.reset_launches()
     for m in mods.values():
         m.launches = 0
@@ -1271,6 +1534,7 @@ def parallel_phase(torch, dev, cfg, params, paged: dict, card: str,
     from repro_torch.kernels import batch_cache as bc
     from repro_torch.kernels import dbuf_copy, memcpy, pchase, rmsnorm
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import strided
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import (make_production_mesh,
@@ -1285,7 +1549,7 @@ def parallel_phase(torch, dev, cfg, params, paged: dict, card: str,
 
     mods = {"flash_attention": fa, "pchase": pchase, "memcpy": memcpy,
             "dbuf_copy": dbuf_copy, "strided": strided, "rmsnorm": rmsnorm,
-            "batch_cache": bc}
+            "batch_cache": bc, "paged_decode": pd}
     phase = dict.fromkeys(mods, 0)
 
     def take() -> dict:
@@ -1348,7 +1612,10 @@ def parallel_phase(torch, dev, cfg, params, paged: dict, card: str,
            ticks_pool_moved=moved, uids_equal_to_paged_bf16=sum(
                got.get(u) == g for u, g in paged["tokens"].items()),
            card=card)
-    check(got == paged["tokens"],
+    # a pool on a mesh decodes through the gather and the masked plain
+    # branch: its oracle is the paged run on that arithmetic (on the CPU
+    # the paged run's own, which runs the plain version)
+    check(got == paged.get("plain_tokens", paged["tokens"]),
           "the 1-device mesh's tokens differ from the paged engine's")
     check(s["steps"] == paged["ticks"],
           f"the 1-device mesh took {s['steps']} ticks, the paged engine "
@@ -3152,7 +3419,12 @@ def dissect_phase(torch, dev, card: str) -> dict:
             "batched_engine_speedup": speedup, "card": card}
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=["paged_decode"],
+                        help="the device and build phases and this phase "
+                             "alone")
+    opts = parser.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py runs from the root of a checkout of the repo: "
               f"{SRC / 'repro_torch'} is missing", file=sys.stderr)
@@ -3183,6 +3455,19 @@ def main() -> int:
     record("device", nvidia_smi=card, kind=kind,
            count=torch.cuda.device_count(), torch=torch.__version__,
            cuda=torch.version.cuda)
+
+    if opts.only == "paged_decode":
+        t0 = time.perf_counter()
+        built = _build.build(["paged_decode"])["paged_decode"]
+        record("build", seconds=time.perf_counter() - t0, libraries={
+            "paged_decode": {"seconds": built.seconds,
+                             "ptxas": ptxas_summary(built.log)}})
+        print(json.dumps({"kernels": [paged_decode_phase(torch, dev, card)]}),
+              flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- build ----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3345,6 +3630,7 @@ def main() -> int:
     # before them: torch.profiler traces taken after the serving phases'
     # large traces miss kernels
     rms_record = rmsnorm_phase(torch, dev, card)
+    paged_record = paged_decode_phase(torch, dev, card)
     measured = measurement(torch, dev, card)
     torch.cuda.empty_cache()
     dissected = dissect_phase(torch, dev, card)
@@ -3517,7 +3803,8 @@ def main() -> int:
                          for k, v in times.items() if k != (32, 256)},
         "card": card}]
     rms_record["launches"] = serving_rmsnorm_launches
-    kernels += [rms_record] + measured + [dissected]
+    paged_record["launches"] = oracle["paged_decode_launches"]
+    kernels += [rms_record, paged_record] + measured + [dissected]
     add_phase_launches(kernels, {
         "fleet_launches": fleet_launches, "bench_launches": bench_launches,
         "families_launches": families_launches,

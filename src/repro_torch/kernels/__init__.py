@@ -3,4 +3,4 @@
 #: the kernel modules, one CUDA source each (``csrc/<name>.cu``); each
 #: counts its wrapper's launches in ``launches``
 KERNELS = ("flash_attention", "pchase", "memcpy", "dbuf_copy", "strided",
-           "rmsnorm", "batch_cache")
+           "rmsnorm", "batch_cache", "paged_decode")

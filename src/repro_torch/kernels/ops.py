@@ -20,6 +20,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import memcpy as _mc
+from repro_torch.kernels import paged_decode as _pd
 from repro_torch.kernels import pchase as _pc
 from repro_torch.kernels import ref
 from repro_torch.kernels import strided as _st
@@ -94,6 +95,12 @@ def flash_attention(q, k, v, *, num_q_heads: int, num_kv_heads: int,
     return _fa.flash_attention(
         q, k, v, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
         causal=causal, scale=scale, block_q=block_q, block_k=block_k)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, positions, *,
+                           scale: float | None = None):
+    return _pd.paged_decode_attention(q, k_pages, v_pages, page_table,
+                                      positions, scale=scale)
 
 
 def attention(q, k, v, *, num_q_heads: int, num_kv_heads: int,

@@ -321,6 +321,18 @@ def _paged_valid(t: int, positions: torch.Tensor) -> torch.Tensor:
             <= positions[:, :, None])
 
 
+def paged_decode_applies(pool, q) -> bool:
+    """Whether a one-token decode step over a GQA page pool ``pool`` with
+    queries like ``q`` (or any tensor of the same parameters) takes
+    :func:`kops.paged_decode_attention`, which reads each row only up to its
+    own position and rows on the scratch page not at all: both are plain
+    tensors. A pool or queries of ``DTensor``s, and a model with no GQA
+    pool (``pool`` None: MLA's latent pages, no attention), gather every
+    row whole."""
+    return pool is not None and not (sharding.is_dtensor(pool)
+                                     or sharding.is_dtensor(q))
+
+
 def init_attention(cfg: ModelConfig, generator: torch.Generator,
                    device) -> dict[str, torch.Tensor]:
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -506,8 +518,12 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """``cache=None`` is the full-sequence prefill. With ``page_table``
     (B, P), the ``{"k", "v"}`` cache is one layer's page pool of
     (num_pages, page_len, Hkv, D): this step's K/V are scattered into it
-    IN PLACE at ``positions`` and each slot's pages gathered back, for
-    one-token decode (S=1) and chunked prefill alike. Otherwise a cache of
+    IN PLACE at ``positions``. A chunked prefill (S>1), or a pool of
+    ``DTensor``s, gathers each slot's pages back and attends through the
+    masked plain branch; a one-token decode (S=1) on a plain pool reads
+    each row's own pages through ``kops.paged_decode_attention``, up to
+    its own position (a row on the scratch page reads nothing and gets
+    zeros). Otherwise a cache of
     (B, T, Hkv, D) is one decode step, written IN PLACE at
     ``cache_index`` (a (B,) vector of per-slot positions, or one scalar
     position for the whole batch) and returned. An int8 cache (with f32
@@ -536,10 +552,18 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         # chunk's queries see the chunk's own keys
         ck = _paged_scatter(cache["k"], page_table, positions, k)
         cv = _paged_scatter(cache["v"], page_table, positions, v)
-        kg = _paged_gather(ck, page_table)
-        vg = _paged_gather(cv, page_table)
-        o = _sdpa(q, kg, vg, cfg, causal=False,
-                  kv_len_mask=_paged_valid(kg.shape[1], positions))
+        if s == 1 and paged_decode_applies(ck, q):
+            # one query a row: each row's own pages, where they lie, up to
+            # its own position (rows on the scratch page read nothing)
+            tracing.count("attn.paged_decode", 1)
+            with tracing.span("attn.core"):
+                o = kops.paged_decode_attention(q, ck, cv, page_table,
+                                                positions)
+        else:
+            kg = _paged_gather(ck, page_table)
+            vg = _paged_gather(cv, page_table)
+            o = _sdpa(q, kg, vg, cfg, causal=False,
+                      kv_len_mask=_paged_valid(kg.shape[1], positions))
         new_cache = {"k": ck, "v": cv}
     elif cache["k"].dtype == torch.int8 and not _is_vector(cache_index):
         # int8-quantized cache (per token×head symmetric scales): halves

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import tracing
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import sharding
@@ -512,11 +513,14 @@ class PagedServeEngine:
         mask = np.zeros(self.max_slots, dtype=bool)
         mask[list(self.active)] = True
         if tracing.enabled():
-            # every row gathers its whole page-table row; a live row's
-            # query sees its positions up to the one it writes
-            tracing.count("kv.live", int(self.positions[mask].sum())
-                          + len(self.active))
-            tracing.count("kv.gathered", self.max_slots
+            # a live row's query sees its positions up to the one it
+            # writes; the paged decode kernel reads that far and no
+            # further, the gather every row whole
+            live = int(self.positions[mask].sum()) + len(self.active)
+            tracing.count("kv.live", live)
+            own = L.paged_decode_applies(self.cache.get("k"),
+                                         self.params.embed)
+            tracing.count("kv.gathered", live if own else self.max_slots
                           * self.pages_per_seq * self.page_len)
         tables = np.where(mask[:, None], self.page_tables, 0)
         slot_ids = np.where(mask, np.arange(self.max_slots), self.max_slots)

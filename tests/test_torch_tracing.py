@@ -167,8 +167,10 @@ def test_kv_counters_equal_hand_counts_through_a_preemption():
     step 4 B cannot grow to a second page and rolls itself back, A
     finishes; B is admitted again in step 5 and decodes to its end. A
     prefill chunk gathers one row (16 positions) and its live count is
-    its prefill frontier; a decode tick gathers both rows (32) and each
-    decoding row's live count is its position + 1."""
+    its prefill frontier; a decode tick reads each decoding row up to its
+    own position (the paged decode attention), so it counts position + 1
+    a row on both counters, and nothing for the row on the scratch
+    page."""
     cfg, params = _model("granite-8b")
     eng = PagedServeEngine(cfg, params, max_slots=2, max_len=16,
                            prefill_chunk=4, page_len=4, num_pages=4)
@@ -186,7 +188,7 @@ def test_kv_counters_equal_hand_counts_through_a_preemption():
     #        A 0-4   A 4-5 +  B 0-3 +   A 8   B 0-3 +  B 5 .. 8
     #                A 6      A 7, B 4         B 4
     assert live == [4, 5 + 6, 3 + 7 + 4, 8, 3 + 4, 5, 6, 7, 8]
-    assert gathered == [16, 16 + 32, 16 + 32, 32, 16 + 32, 32, 32, 32, 32]
+    assert gathered == [16, 16 + 6, 16 + 7 + 4, 8, 16 + 4, 5, 6, 7, 8]
 
 
 def test_train_step_gives_the_same_loss_and_parameters_traced():
