@@ -42,8 +42,10 @@ non-zero. Phases:
            32/8 heads of 128, pages of 256, 24 rows live at the chat mix's
            lengths, spread over the slots), checked as above: kernel ms, device ms (both its kernels), the bytes
            bound, plain ms and SDPA over pre-gathered K/V (library_ms, a
-           yardstick the port never calls); its launches on the granite
-           smoke engine, one a layer a decode step and none a chunk
+           yardstick the port never calls); its kernels on the card over
+           a run of the granite smoke engine (torch.profiler), one a layer
+           a decode step and none a chunk, and the wrapper's calls, two a
+           layer (the decode graph's warm-up and capture)
   check    the measurement kernels (pchase, memcpy, dbuf_copy, strided)
            against their plain versions on the card, exactly, at the
            paper's sizes (1 GiB copies, a 64 MB chase, the strided probe
@@ -92,8 +94,11 @@ non-zero. Phases:
            engine (pages sized by the cost model: 128 tokens), checked
            after every tick, with no leaked page, at most a page of slack,
            no flash launch (a prefill chunk is masked, so it takes the
-           plain branch) and one paged decode launch a layer a decode
-           step; the same run with the decode attention on its plain
+           plain branch), one paged decode kernel on the card a layer a
+           decode step over the first WITNESS_TICKS ticks (a
+           torch.profiler trace: the decode graph's replays included) and
+           the wrapper called only at the graph's warm-up and capture;
+           the same run with the decode attention on its plain
            version (the parallel phase's oracle; its tokens beside the
            kernel's, bf16, not gated); a warm window of its decode ticks
            under torch.profiler; the same workload on a pool sized from its own
@@ -263,6 +268,18 @@ LAUNCH_CALL = re.compile(r"Launch|Memcpy|Memset")
 #: cycles of each (about 66 us at the H100's 1.98 GHz)
 SETTLING_CALLS = 8
 SETTLING_SPIN_CYCLES = 1 << 17
+#: ticks of a full-width paged run whose paged decode kernels are counted
+#: on the card (the decode graph's capture and replays, and prefill chunks)
+WITNESS_TICKS = 48
+#: spin kernels on each side of a KernelWindow, and the clock cycles of
+#: each (about 2 us): a trace of a full-width paged run after other large
+#: traces lost up to about 300 device events at either end, eight settling
+#: spins and part of the last graph replay among them
+WINDOW_PADDING = 1024
+WINDOW_SPIN_CYCLES = 1 << 12
+#: the paged decode kernel's name in a trace (the combine kernel follows
+#: it once a launch)
+PAGED_DECODE_KERNEL = "paged_decode_split"
 #: bf16 flash against its plain version: the worst relative RMS
 #: difference over the (64 rows, D) tiles of every head (ref.tile_rel_rms).
 #: The bf16 rounding of P and of the output gives about 2.6e-3 (an
@@ -356,6 +373,71 @@ def window(events: list[dict], settling: int = SETTLING_CALLS
     return dev, [{"call": e["name"], "calls_after": len(inner) - 1 - i}
                  for i, e in enumerate(inner)
                  if e["args"]["correlation"] not in seen]
+
+
+class KernelWindow:
+    """The kernels whose name holds ``name`` that the card runs over the
+    next ``ticks`` calls of ``eng.step`` (None: until :meth:`close`),
+    counted from a torch.profiler trace of CUDA activity. The trace sees
+    the kernels of a replayed CUDA graph, which no wrapper's launch count
+    sees (the wrapper runs once, at the capture). The window is padded
+    with WINDOW_PADDING spin kernels on each side, since a trace loses
+    device events at its ends; ``padding`` holds how many of them are
+    left before and after the window's own events, and the count is
+    whole only where both are nonzero. Once the window is closed,
+    ``kernels`` holds the count, ``ticks`` the steps inside it and
+    ``steps`` a copy of ``books`` (:func:`count_steps`) at its end. Close
+    it after the run: the trace's events are read there, off the run's
+    clock."""
+
+    def __init__(self, torch, eng, name: str, books: dict,
+                 ticks: int | None = WITNESS_TICKS):
+        from torch.profiler import ProfilerActivity, profile
+        self.torch, self.name, self.books = torch, name, books
+        self.kernels = self.steps = self.padding = None
+        self.ticks = 0
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.start()
+        self._spin()
+        real = eng.step
+
+        def step():
+            live = real()
+            if self.steps is None:
+                self.ticks += 1
+                if self.ticks == ticks:
+                    self._stop()
+            return live
+        eng.step = step
+
+    def _spin(self) -> None:
+        for _ in range(WINDOW_PADDING):
+            self.torch.cuda._sleep(WINDOW_SPIN_CYCLES)
+
+    def _stop(self) -> None:
+        self._spin()
+        self.torch.cuda.synchronize()
+        self.prof.stop()
+        self.steps = dict(self.books)
+
+    def close(self) -> None:
+        from torch.autograd import DeviceType
+        if self.steps is None:
+            self._stop()
+        dev = sorted((e for e in self.prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        spin = ["spin_kernel" in e.name for e in dev]
+        own = [i for i, s in enumerate(spin) if not s]
+        self.padding = ((own[0], len(dev) - 1 - own[-1]) if own
+                        else (len(dev), 0))
+        self.kernels = sum(self.name in e.name for e in dev)
+
+    def check_whole(self, what: str) -> None:
+        check(min(self.padding) > 0,
+              f"the trace of {what} lost more than its padding at an end "
+              f"(spins left before and after: {self.padding}): its count "
+              f"of {self.name} is not whole")
 
 
 def complete_trace(torch, fn, path: Path, is_complete) -> tuple[list, dict]:
@@ -1010,16 +1092,24 @@ def paged_decode_phase(torch, dev, card: str) -> dict:
                            .astype(np.int32), n))
     steps = count_steps(eng)
     pd.reset_launches()
+    seen = KernelWindow(torch, eng, PAGED_DECODE_KERNEL, steps, ticks=None)
     finished = eng.run_to_completion()
-    torch.cuda.synchronize()
-    smoke_launches = pd.launches
+    seen.close()
+    smoke_launches = seen.kernels
     record("paged_decode", step="smoke_engine", arch=cfg.name,
            layers=cfg.num_layers, requests=len(finished), **steps,
-           launches=smoke_launches)
+           launches=smoke_launches, host_launches=pd.launches,
+           padding_left=seen.padding)
     check(len(finished) == 5, "the smoke engine did not finish its requests")
+    seen.check_whole("the smoke engine's run")
+    # the card runs the kernel once a layer a decode step; Python calls
+    # it twice a layer, at the decode graph's warm-up and capture
     check(smoke_launches == cfg.num_layers * steps["decode"] > 0,
-          f"the smoke engine launched paged_decode {smoke_launches} times "
-          f"over {steps['decode']} decode steps of {cfg.num_layers} layers")
+          f"the card ran paged_decode {smoke_launches} times over "
+          f"{steps['decode']} decode steps of {cfg.num_layers} layers")
+    check(pd.launches == 2 * cfg.num_layers,
+          f"the wrapper launched paged_decode {pd.launches} times, not "
+          f"once a layer at the decode graph's warm-up and capture")
     return {"name": "paged_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
             "replaces": None, "launches": None,
@@ -1070,7 +1160,9 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
             pd.reset_launches()
             steps = count_steps(eng)
             torch.cuda.reset_peak_memory_stats()
+            seen = KernelWindow(torch, eng, PAGED_DECODE_KERNEL, steps)
             res = serve._engine_run(cfg, params, args, engine=eng)
+            seen.close()
         print(out.getvalue(), end="", flush=True)
         printed = int(re.search(r"page_len=(\d+)", out.getvalue()).group(1))
         s = eng.stats()
@@ -1088,7 +1180,11 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
                    max_slack_tokens=s["max_slack_tokens"],
                    pages_leaked=eng.alloc.allocated_pages,
                    flash_launches=fa.launches,
-                   paged_decode_launches=pd.launches,
+                   paged_decode_host_launches=pd.launches,
+                   witness_ticks=seen.ticks,
+                   witness_decode_steps=seen.steps["decode"],
+                   witness_paged_decode_launches=seen.kernels,
+                   witness_padding_left=seen.padding,
                    decode_steps=steps["decode"], chunk_steps=steps["chunk"],
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    # bf16, reported and not gated: the dense prefill runs
@@ -1112,9 +1208,14 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
               f"choose_page_len {want_len}")
         check(fa.launches == 0,
               f"the paged run launched flash {fa.launches} times")
-        check(pd.launches == cfg.num_layers * steps["decode"] > 0,
-              f"the paged run launched paged_decode {pd.launches} times "
-              f"over {steps['decode']} decode steps")
+        seen.check_whole(f"the paged run's first {seen.ticks} ticks")
+        check(seen.kernels == cfg.num_layers * seen.steps["decode"] > 0,
+              f"the card ran paged_decode {seen.kernels} times over "
+              f"{seen.steps['decode']} decode steps in the first "
+              f"{seen.ticks} ticks")
+        check(pd.launches == 2 * cfg.num_layers,
+              f"the wrapper launched paged_decode {pd.launches} times, not "
+              f"once a layer at the decode graph's warm-up and capture")
         return eng, rec, got
 
     eng, rec, got = run(None)
@@ -1148,7 +1249,8 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
                   plain_tokens=plain_got, ticks=rec["ticks"],
                   page_len=eng.page_len, num_pages=eng.alloc.num_pages,
                   tokens_per_s=rec["tokens_per_s"],
-                  paged_decode_launches=rec["paged_decode_launches"])
+                  paged_decode_launches=rec["witness_paged_decode_launches"],
+                  paged_decode_launch_ticks=rec["witness_ticks"])
 
     # where the time goes: a warm window of 8 decode ticks, 4 slots busy
     prof = PagedServeEngine(cfg, params, max_slots=4, max_len=768)
@@ -3803,7 +3905,9 @@ def main(argv: list[str] | None = None) -> int:
                          for k, v in times.items() if k != (32, 256)},
         "card": card}]
     rms_record["launches"] = serving_rmsnorm_launches
+    # on the card, over the paged run's first WITNESS_TICKS ticks
     paged_record["launches"] = oracle["paged_decode_launches"]
+    paged_record["launches_ticks"] = oracle["paged_decode_launch_ticks"]
     kernels += [rms_record, paged_record] + measured + [dissected]
     add_phase_launches(kernels, {
         "fleet_launches": fleet_launches, "bench_launches": bench_launches,

@@ -27,6 +27,11 @@ preempts the youngest request when the pool runs dry.
   leaves are ``DTensor``s with the KV heads on ``"model"``
   (``MESH_SERVE_RULES``); parameters, activations and the host books stay
   as they are, so the tokens equal the unsharded engine's.
+* On a card, with plain pools and parameters and no mesh
+  (:func:`decode_graph_applies`), the paged engine's decode tick replays
+  a CUDA graph of its model step (:class:`_DecodeGraph`): the same
+  kernels on the same operands, launched by one call instead of one
+  Python dispatch each.
 """
 
 from __future__ import annotations
@@ -218,6 +223,113 @@ def _write_pool_rows(leaf, idx: torch.Tensor, rows: torch.Tensor) -> None:
                                                    leaf.placements)
 
 
+#: the types of a plain tensor: a ``DTensor`` (also as a parameter) or
+#: any other subclass is none
+_PLAIN = (torch.Tensor, torch.nn.Parameter)
+
+
+def _param_leaves(params: T.TransformerLM) -> list[torch.Tensor]:
+    """Every parameter tensor of ``params``, read from the modules' own
+    tables (``parameters()`` costs more than a graphed tick can spare)."""
+    out = []
+    for m in (params, params.frontend, *params.blocks):
+        out.extend(t for t in m._parameters.values() if t is not None)
+    return out
+
+
+def _decode_graph_key(engine: "PagedServeEngine") -> tuple | None:
+    """What a graph of ``engine``'s decode step bakes in: the addresses of
+    the pool leaves and of the parameters, and the pools' shapes. None
+    where no graph applies: a mesh, or a leaf that is no plain CUDA
+    tensor (CPU tensors, ``DTensor`` pools or parameters)."""
+    if engine._shard_ctx is not None:
+        return None
+    pools = list(engine.cache.values())
+    leaves = pools + _param_leaves(engine.params)
+    if not all(type(t) in _PLAIN and t.is_cuda for t in leaves):
+        return None
+    return (tuple(t.data_ptr() for t in leaves),
+            tuple(t.shape for t in pools))
+
+
+def decode_graph_applies(engine: "PagedServeEngine") -> bool:
+    """Whether ``engine``'s decode tick replays a CUDA graph: its pools
+    and parameters are plain CUDA tensors and it has no mesh. CPU,
+    ``DTensor`` and mesh engines run every tick eagerly: their steps run
+    collectives and per-layer spec resolution, which are not captured."""
+    return _decode_graph_key(engine) is not None
+
+
+class _DecodeGraph:
+    """The decode tick's :func:`T.paged_step` at ``(max_slots, 1)``
+    tokens, captured once as a CUDA graph and replayed.
+
+    The graph reads the tick's books (tokens, start positions, page
+    tables, slot ids) from one device buffer of its own, which
+    :meth:`load` fills from pinned staging before each replay, and writes
+    the engine's pools in place; its logits are one buffer that each
+    replay overwrites. ``key`` is what it baked in
+    (:func:`_decode_graph_key`). The staging is written again only after
+    the tick's ``.cpu()`` readback, so the last copy out of it has ended."""
+
+    def __init__(self, engine: "PagedServeEngine", key: tuple):
+        self.key = key
+        slots, width = engine.max_slots, engine.pages_per_seq
+        self.sizes = [slots, slots, slots * width, slots]
+        self.staging = torch.empty(sum(self.sizes), dtype=torch.long,
+                                   pin_memory=True)
+        self.host = self.staging.numpy()
+        self.inputs = torch.empty(sum(self.sizes), dtype=torch.long,
+                                  device=engine.device)
+        toks, start, tables, slot_ids = self.inputs.split(self.sizes)
+        self.args = (toks.view(slots, 1), start, tables.view(slots, width),
+                     slot_ids)
+        self.graph = None
+        self.logits = None
+
+    def load(self, *books: np.ndarray) -> None:
+        """Copy the tick's books into the graph's inputs, without a sync."""
+        at = 0
+        for a, n in zip(books, self.sizes):
+            self.host[at:at + n] = a.reshape(-1)
+            at += n
+        self.inputs.copy_(self.staging, non_blocking=True)
+
+    def _run(self, engine: "PagedServeEngine") -> torch.Tensor:
+        logits, _ = T.paged_step(engine.params, engine.cfg, engine.cache,
+                                 *self.args)
+        return logits
+
+    def capture(self, engine: "PagedServeEngine") -> torch.Tensor:
+        """Warm the step up on a side stream, then capture it there, as
+        PyTorch's recipe for CUDA graphs does; the warm-up builds the
+        kernels and warms cuBLAS. Returns the warm-up's logits, which are
+        this tick's. The capture runs nothing on the card, so tracing is
+        off around it; a kernel wrapper's own launch count still counts
+        the capture's calls, as it counts every call from Python."""
+        current = torch.cuda.current_stream(engine.device)
+        side = torch.cuda.Stream(engine.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            logits = self._run(engine)
+        current.wait_stream(side)
+        logits.record_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        was = tracing.enabled()
+        tracing.enable(False)
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                self.logits = self._run(engine)
+        finally:
+            tracing.enable(was)
+        self.graph = graph
+        return logits
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        return self.logits
+
+
 class PagedServeEngine:
     """Continuous batching over a paged KV cache (see module docstring).
 
@@ -304,12 +416,46 @@ class PagedServeEngine:
         self.exports = 0               # KV handoffs out
         self.imports = 0               # KV handoffs in
         self._admit_counter = 0
+        self._graph: _DecodeGraph | None = None  # the decode tick's graph
 
     def _step(self, toks: np.ndarray, start: np.ndarray, tables: np.ndarray,
               slot_ids: np.ndarray, seq_lens: np.ndarray | None):
-        """One :func:`T.paged_step`; the host books go to the card here.
-        The engine's sharding ctx is active around it (None pinned where
-        there is no mesh, so an ambient ctx never reaches the step)."""
+        """One :func:`T.paged_step`. A decode tick (``seq_lens`` None) on
+        an engine where :func:`decode_graph_applies` replays its CUDA
+        graph: the first decode tick on a set of pools and parameters warms
+        up and captures, and the ticks after it replay; new pools or
+        parameters capture again. Everything else runs
+        :meth:`_eager_step`."""
+        if seq_lens is not None:
+            return self._eager_step(toks, start, tables, slot_ids, seq_lens)
+        key = _decode_graph_key(self)
+        g = self._graph
+        if g is not None and g.key == key:
+            with tracing.span("engine.upload"):
+                g.load(toks, start, tables, slot_ids)
+            tracing.count("engine.decode_graphed", 1)
+            with tracing.span("engine.replay"):
+                return g.replay()
+        tracing.count("engine.decode_eager", 1)
+        if key is None:
+            self._graph = None
+            return self._eager_step(toks, start, tables, slot_ids, seq_lens)
+        g = _DecodeGraph(self, key)
+        with tracing.span("engine.upload"):
+            g.load(toks, start, tables, slot_ids)
+        tracing.count("engine.graph_captures", 1)
+        with sharding.use(None):
+            logits = g.capture(self)
+        self._graph = g
+        return logits
+
+    def _eager_step(self, toks: np.ndarray, start: np.ndarray,
+                    tables: np.ndarray, slot_ids: np.ndarray,
+                    seq_lens: np.ndarray | None):
+        """One :func:`T.paged_step`, dispatched op by op; the host books
+        go to the card here. The engine's sharding ctx is active around it
+        (None pinned where there is no mesh, so an ambient ctx never
+        reaches the step)."""
         dev = self.device
 
         def put(a):

@@ -9,8 +9,9 @@ that are not contiguous and pages that rows share, and with idle rows on
 the scratch page (finite zeros). The paged engine's tokens equal the
 dense engine's. The tests marked ``gpu`` hold the CUDA kernel to the
 plain version on the card, count its launches on the decode path (one a
-GQA layer a decode step; none for a prefill chunk, a pool of
-``DTensor``s or an MLA layer) and check that the wrapper raises on what
+GQA layer a decode step, on the card where the engine's decode graph
+replays it; none for a prefill chunk, a pool of ``DTensor``s or an MLA
+layer) and check that the wrapper raises on what
 the kernel does not take. No test here imports jax.
 """
 
@@ -309,6 +310,28 @@ def test_kernel_rejects_on_card():
         _build.check(lib, err, "paged_decode_attention")
 
 
+def kernels_on_card(fn, name="paged_decode_split") -> int:
+    """The kernels whose name holds ``name`` that the card runs during
+    ``fn()``, from a torch.profiler trace of CUDA activity (it sees a
+    replayed graph's kernels). A trace loses device events at its ends, so
+    the call is padded with 1,024 spin kernels on each side, and the count
+    holds only where spins are left at both ends."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(1024):
+            torch.cuda._sleep(1 << 12)
+        fn()
+        for _ in range(1024):
+            torch.cuda._sleep(1 << 12)
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    assert "spin_kernel" in dev[0].name and "spin_kernel" in dev[-1].name
+    return sum(name in e.name for e in dev)
+
+
 @pytest.mark.gpu
 def test_decode_path_launches_once_a_layer_on_card():
     """A paged decode tick launches the kernel once a GQA layer; a prefill
@@ -347,11 +370,16 @@ def test_engine_on_card_launches_on_decode_ticks_only():
     cfg, params = _smoke(device="cuda")
     eng = PagedServeEngine(cfg, params, max_slots=2, max_len=32, page_len=4)
     eng.submit(_requests(cfg, [(5, 6)])[0])
-    eng.step()                         # prefill and the first decode tick
     pd.reset_launches()
-    eng.step()
-    torch.cuda.synchronize()
-    assert pd.launches == cfg.num_layers
+    assert kernels_on_card(eng.step) == pd.launches == 0   # the prefill
+    # the first decode tick: the decode graph's warm-up runs the kernel
+    # once a layer, and its capture calls the wrapper once more a layer
+    assert kernels_on_card(eng.step) == cfg.num_layers
+    assert pd.launches == 2 * cfg.num_layers
+    # a replay runs it once a layer on the card, with no call from Python
+    pd.reset_launches()
+    assert kernels_on_card(eng.step) == cfg.num_layers
+    assert pd.launches == 0
     dense = ServeEngine(cfg, params, max_slots=2, max_len=32)
     for e in (eng, dense):
         if e is dense:

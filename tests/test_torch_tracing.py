@@ -98,6 +98,14 @@ def test_paged_engine_serves_the_same_tokens_traced(arch):
     assert kept == {"spans": [], "counters": {}}
     assert on == off
     assert got["spans"] and got["counters"]["kv.gathered"] > 0
+    # a CPU engine runs every decode tick eagerly (no CUDA graph): each
+    # one counts, and nothing counts a capture or a replay
+    spans = got["spans"]
+    decodes = sum(s.name == "engine.upload"
+                  and spans[s.parent].name == "engine.decode" for s in spans)
+    assert got["counters"]["engine.decode_eager"] == decodes > 0
+    assert not {"engine.decode_graphed", "engine.graph_captures"} \
+        & set(got["counters"])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
