@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's paths on one NVIDIA card: time its kernels and
+run its full-width paths.
 
     python3 chip_smoke.py [--only paged_decode]
 
@@ -7,58 +8,39 @@ Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 nvidia-smi. It builds every kernel of the port from
 ``src/repro_torch/kernels/csrc/`` into ``build/repro_torch/``. Each phase
 prints one JSON record on a line of its own; any failure raises and exits
-non-zero. Phases:
+non-zero. The kernels' card check against their plain versions is the
+``gpu`` tests (``python -m pytest -m gpu tests/test_torch_*.py`` on the
+card), which hold every shape timed here. Phases:
 
   device   the card's name and power limit (nvidia-smi) and torch's name
   build    all eight kernels, one nvcc each, started together; ptxas
            registers, shared memory and spills; the HGMMA instructions in
            the bf16 flash kernels' SASS (cuobjdump), which must be there
-  check    the flash kernel against its plain PyTorch version on the card,
-           bf16 (the tensor-core route) and float32 (the FMA route), at
-           granite-8b's heads over ragged and long lengths, small head dims
-           and three GQA ratios, and at the families phase's shapes
-           (D 80 non-causal, GQA 16/8 at 512); bf16 also by the worst
-           relative RMS of a 64-row tile, beside the reading of one
-           skipped kv tile
-  times    kernel, plain version, the PyTorch library call and the bound,
-           each kernel and library call also as device time per launch
-           from a torch.profiler trace (the event mean of back-to-back
-           calls is set by the host where the kernel is short); a trace
-           that misses kernels is taken again, and flagged if it stays
-           short; where every attempt's trace holds no device event at
-           all (the profiler blind), the event mean stands in for the
-           device time, its trace info's source "cuda_events"
-  check    the rmsnorm kernel against its plain version at granite-8b's
-           and mistral-large's widths and a width that takes the scalar
-           tail, float32 and bfloat16, and its ValueError on CUDA tensors
-  times    rmsnorm beside plain, torch.nn.functional.rms_norm and bound ms
-  check    the paged decode kernel against its plain version (the gather
-           and the masked plain branch), bfloat16 within one step and
-           float32, at every GQA decoder's heads (pages of 16, an idle
-           row), at positions 0, 1, 255-257 and 4,095 on pages of 256 and
-           of 5, rows on their own and on shared pages; idle rows zeros;
-           its ValueError at head dim 256
-  times    the same at the granite-8b.chat cell's decode shape (64 slots,
-           32/8 heads of 128, pages of 256, 24 rows live at the chat mix's
-           lengths, spread over the slots), checked as above: kernel ms, device ms (both its kernels), the bytes
-           bound, plain ms and SDPA over pre-gathered K/V (library_ms, a
-           yardstick the port never calls); its kernels on the card over
-           a run of the granite smoke engine (torch.profiler), one a layer
-           a decode step and none a chunk, and the wrapper's calls, two a
-           layer (the decode graph's warm-up and capture)
-  check    the measurement kernels (pchase, memcpy, dbuf_copy, strided)
-           against their plain versions on the card, exactly, at the
-           paper's sizes (1 GiB copies, a 64 MB chase, the strided probe
-           at every stride 1-257 of its timed shapes) and at the copies'
-           edges (memcpy from an unaligned start and with a short last
-           batch; dbuf_copy ending in a partial tile and a 13-byte tail at
-           every depth, and from starts 1, 3 and 15 bytes past 16-byte
-           alignment at every depth), and each ValueError on CUDA tensors
-           (divisibility, depth)
-  times    the same kernels' ms beside plain, library and bound ms; memcpy
-           and dbuf_copy in turns with copy_ (kernel, copy_, copy_,
-           kernel, five times), every turn recorded beside the medians,
-           and the host's time to issue one call of each
+  times    flash in bf16 at granite-8b's heads (bh 32 x S 101, 256 and
+           2,048, bh 128 x S 256) and at the families phase's shapes (D 80
+           non-causal, GQA 16/8 at 512): kernel, plain version, the
+           PyTorch library call and the bound, each kernel and library
+           call also as device time per launch from a torch.profiler
+           trace (the event mean of back-to-back calls is set by the host
+           where the kernel is short); a trace that misses kernels is
+           taken again, and flagged if it stays short; where every
+           attempt's trace holds no device event at all (the profiler
+           blind), the event mean stands in for the device time, its
+           trace info's source "cuda_events"
+  times    rmsnorm in bf16 at (1,024, 4,096) and (65,536, 4,096) beside
+           plain, torch.nn.functional.rms_norm and bound ms
+  times    the paged decode kernel at the granite-8b.chat cell's decode
+           shape (64 slots, 32/8 heads of 128, pages of 256, 24 rows live
+           at the chat mix's lengths, spread over the slots): kernel ms,
+           device ms (both its kernels), the bytes bound, plain ms and
+           SDPA over pre-gathered K/V (library_ms, a yardstick the port
+           never calls)
+  times    the measurement kernels (pchase over a 64 MB single-cycle
+           chase of 2^16 accesses, memcpy and dbuf_copy at 1 GiB, strided
+           at (128, 256)) beside plain, library and bound ms; memcpy and
+           dbuf_copy in turns with copy_ (kernel, copy_, copy_, kernel,
+           five times), every turn recorded beside the medians, and the
+           host's time to issue one call of each
   measure  the paper's measurement path end to end: P-chase cycles per
            access at L1, L2 and device-memory footprints (gated L1 < L2 <
            device memory), Wong's and Saavedra's curves through the trace
@@ -66,20 +48,17 @@ non-zero. Phases:
            dbuf_copy depth curve beside copy_ and the strided probe's
            stride curve at (128, 256) and (1024, 32) float32, device time
            beside the bank conflict degree its addresses give
-  dissect  the batched cache engine's scan kernel against its plain
-           version (16 lanes of every registered simulated cache, 4,096
-           accesses each) and the numpy Cache (2^16 accesses a lane, the
-           LRU lanes), and its ValueError for a lane too wide for shared
-           memory; then the dissection path, counted: dissect_device of
-           GTX560Ti, GTX780, GTX980 and TeslaV100 with the torch engine on
-           the card and with the vector engine, each diffed against the
-           committed experiments/profiles with no failing row, and the
-           torch backend's traces that take the scan (a stride that does
-           not tile, a custom index stream, run and run.batch) against the
+  dissect  the dissection path, counted: dissect_device of GTX560Ti,
+           GTX780, GTX980 and TeslaV100 with the torch engine on the card
+           and with the vector engine, each diffed against the committed
+           experiments/profiles with no failing row, and the torch
+           backend's traces that take the scan (a stride that does not
+           tile, a custom index stream, run and run.batch) against the
            vector engine's; the torch engine's speedup over the vector
            engine on GTX980's structures (best of 2, trace cache off, gated
-           at 10x); the kernel's times at 16 x 2^16 accesses beside its
-           plain version's (at 16 x 4,096, scaled), its bytes bound and its
+           at 10x); the scan kernel's times at 16 lanes (two of every
+           registered simulated cache) x 2^16 accesses beside its plain
+           version's (at 16 x 4,096, scaled), its bytes bound and its
            latency bound (one L1 round trip an access, from P-chase stamps)
   serving  full-width granite-8b (36 layers, random bf16 weights from a
            seed) through the launcher's fixed-batch loop and its dense
@@ -165,8 +144,8 @@ non-zero. Phases:
            smoke size, paged against dense. The kernels line counts the
            launches of the serving and bf16 flash runs (the counts set
            to 0 just before each) and, apart, over the whole phase with
-           its checks. Flash at the two new shapes is checked and timed
-           with the other flash shapes
+           its checks. Flash at the two new shapes is timed with the other
+           flash shapes
   train    training through the port's entry points: granite-8b at full
            width cut to 16 of 36 layers (3.89 B parameters, bf16 with f32
            AdamW moments, remat "full") taking 20 in-place steps of
@@ -234,7 +213,6 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 on the tensor cores
 CUDA_CORE_OP_PER_S = 67e12       # float32 outside the tensor cores
-TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:95
 #: flash vs "ref" prefill logits of full-depth granite-8b, both run in
 #: float32 on the same weights (bf16 -> f32 is exact): relative RMS
 #: difference. The kernel's own f32 error is about 5e-7 of a unit
@@ -248,10 +226,6 @@ LOGITS_REL_RMS_TOL = 1e-3
 #: the dense prefill, the plain masked branch in the paged chunks), whose
 #: float32 difference is about 1e-6 of a logit
 PAGED_REL_RMS_TOL = 1e-4
-#: paged decode against its plain version in bfloat16, beside TOL: one
-#: bfloat16 step of the value (both round nearly the same f32 sum once),
-#: with an absolute floor for outputs near 0, whose sums cancel
-PAGED_BF16_STEP = dict(rtol=2 ** -7, atol=1e-4)
 #: calls in one torch.profiler trace of a kernel's device time
 PROFILED_CALLS = 20
 #: traces taken of one window before a trace that stays short is flagged
@@ -271,22 +245,9 @@ SETTLING_SPIN_CYCLES = 1 << 17
 #: ticks of a full-width paged run whose paged decode kernels are counted
 #: on the card (the decode graph's capture and replays, and prefill chunks)
 WITNESS_TICKS = 48
-#: spin kernels on each side of a KernelWindow, and the clock cycles of
-#: each (about 2 us): a trace of a full-width paged run after other large
-#: traces lost up to about 300 device events at either end, eight settling
-#: spins and part of the last graph replay among them
-WINDOW_PADDING = 1024
-WINDOW_SPIN_CYCLES = 1 << 12
 #: the paged decode kernel's name in a trace (the combine kernel follows
 #: it once a launch)
 PAGED_DECODE_KERNEL = "paged_decode_split"
-#: bf16 flash against its plain version: the worst relative RMS
-#: difference over the (64 rows, D) tiles of every head (ref.tile_rel_rms).
-#: The bf16 rounding of P and of the output gives about 2.6e-3 (an
-#: emulation of the kernel's rounding in plain PyTorch, bh 4 x S 2048);
-#: one head's last kv tile skipped gives 0.13 there and more at shorter
-#: lengths. The allclose at TOL alone lets such a fault pass at S 2048.
-FLASH_TILE_REL_RMS_TOL = 1e-2
 #: flash at the families phase's shapes, (bh, H, Hkv, sq, sk, D, causal):
 #: hubert-xlarge's forward on 2 x 1024 frames, internvl2-2b's prefill of
 #: 4 x (256 patches + 256 tokens)
@@ -305,6 +266,34 @@ def record(phase: str, **fields) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def agrees(torch, kernel: str, got, want, *, exact: bool = False,
+           tile: bool = False, step: dict | None = None, **info) -> None:
+    """Hold a timed call's output to its plain version's on the same
+    inputs, and record the comparison: equal where ``exact``, else within
+    ``ref.TOL`` of its dtype, and also within ``step`` (allclose keywords)
+    and, with ``tile``, ``ref.FLASH_TILE_REL_RMS_TOL`` over 64-row tiles.
+    The ``gpu`` tests hold the kernel's edge cases; this holds the run
+    whose times are kept."""
+    from repro_torch.kernels import ref
+    torch.cuda.synchronize()
+    ok = got.dtype == want.dtype and got.shape == want.shape
+    if exact:
+        ok = ok and bool(torch.equal(got, want))
+    elif ok:
+        g, w = got.float(), want.float()
+        tol = ref.TOL[got.dtype]
+        info.update(max_abs_err=(g - w).abs().max().item(), tol=tol)
+        ok = torch.allclose(g, w, atol=tol, rtol=tol)
+        if step:
+            ok = ok and torch.allclose(g, w, **step)
+        if tile:
+            info["tile_rel_rms"] = ref.tile_rel_rms(got, want)
+            ok = ok and info["tile_rel_rms"] <= ref.FLASH_TILE_REL_RMS_TOL
+    record("check", kernel=kernel, exact=exact, ok=ok, **info)
+    check(ok, f"{kernel} disagrees with its plain version on its timed "
+              f"inputs ({info})")
 
 
 def card_line() -> str:
@@ -377,67 +366,48 @@ def window(events: list[dict], settling: int = SETTLING_CALLS
 
 class KernelWindow:
     """The kernels whose name holds ``name`` that the card runs over the
-    next ``ticks`` calls of ``eng.step`` (None: until :meth:`close`),
-    counted from a torch.profiler trace of CUDA activity. The trace sees
-    the kernels of a replayed CUDA graph, which no wrapper's launch count
-    sees (the wrapper runs once, at the capture). The window is padded
-    with WINDOW_PADDING spin kernels on each side, since a trace loses
-    device events at its ends; ``padding`` holds how many of them are
-    left before and after the window's own events, and the count is
-    whole only where both are nonzero. Once the window is closed,
-    ``kernels`` holds the count, ``ticks`` the steps inside it and
-    ``steps`` a copy of ``books`` (:func:`count_steps`) at its end. Close
-    it after the run: the trace's events are read there, off the run's
-    clock."""
+    next WITNESS_TICKS calls of ``eng.step``, or until :meth:`close`,
+    counted in a padded torch.profiler trace of CUDA activity
+    (``tracing.PaddedWindow``). The trace sees the kernels of a replayed
+    CUDA graph, which no wrapper's launch count sees (the wrapper runs
+    once, at the capture). Once the window is closed, ``counted`` holds the
+    count (whole only where padding is left at both ends), ``ticks`` the
+    steps inside it and ``steps`` a copy of ``books``
+    (:func:`count_steps`) at its end. Its spins and settling waits (about
+    1 s) fall inside the run's wall time. Close it after the run: the
+    trace's events are read there, off the run's clock."""
 
-    def __init__(self, torch, eng, name: str, books: dict,
-                 ticks: int | None = WITNESS_TICKS):
-        from torch.profiler import ProfilerActivity, profile
-        self.torch, self.name, self.books = torch, name, books
-        self.kernels = self.steps = self.padding = None
+    def __init__(self, eng, name: str, books: dict):
+        from repro_torch import tracing
+        self.name, self.books = name, books
+        self.counted = self.steps = None
         self.ticks = 0
-        self.prof = profile(activities=[ProfilerActivity.CUDA])
-        self.prof.start()
-        self._spin()
+        self.window = tracing.PaddedWindow()
         real = eng.step
 
         def step():
             live = real()
             if self.steps is None:
                 self.ticks += 1
-                if self.ticks == ticks:
+                if self.ticks == WITNESS_TICKS:
                     self._stop()
             return live
         eng.step = step
 
-    def _spin(self) -> None:
-        for _ in range(WINDOW_PADDING):
-            self.torch.cuda._sleep(WINDOW_SPIN_CYCLES)
-
     def _stop(self) -> None:
-        self._spin()
-        self.torch.cuda.synchronize()
-        self.prof.stop()
+        self.window.stop()
         self.steps = dict(self.books)
 
     def close(self) -> None:
-        from torch.autograd import DeviceType
         if self.steps is None:
             self._stop()
-        dev = sorted((e for e in self.prof.events()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        spin = ["spin_kernel" in e.name for e in dev]
-        own = [i for i, s in enumerate(spin) if not s]
-        self.padding = ((own[0], len(dev) - 1 - own[-1]) if own
-                        else (len(dev), 0))
-        self.kernels = sum(self.name in e.name for e in dev)
+        self.counted = self.window.count(self.name)
 
     def check_whole(self, what: str) -> None:
-        check(min(self.padding) > 0,
-              f"the trace of {what} lost more than its padding at an end "
-              f"(spins left before and after: {self.padding}): its count "
-              f"of {self.name} is not whole")
+        c = self.counted
+        check(c.whole, f"the trace of {what} lost more than its padding at "
+              f"an end (spins left before and after: {c.before}, "
+              f"{c.after}): its count of {self.name} is not whole")
 
 
 def complete_trace(torch, fn, path: Path, is_complete) -> tuple[list, dict]:
@@ -836,56 +806,21 @@ def paged_vs_dense(torch, cfg, params, *, requests: int, slots: int,
 
 
 def rmsnorm_phase(torch, dev, card: str) -> dict:
-    """Check the rmsnorm kernel against its plain version on the card, then
-    time it. Returns its kernel record; its launches on the serving path
-    are filled in after that path has run."""
+    """Time the rmsnorm kernel at granite-8b's prefill batch (4 x 256) and
+    at 65,536 rows of d 4,096. Returns its kernel record; its launches on
+    the serving path are filled in after that path has run."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
 
     gen = torch.Generator(device=dev).manual_seed(4)
-
-    def inputs(rows, d, dtype):
-        x = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
-        sc = (torch.randn((d,), generator=gen, device=dev) * 0.1 + 1
-              ).to(dtype)
-        return x, sc
-
-    errs = {}
-    # granite-8b's prefill batch (4 x 256) and decode batch (8) at d 4096,
-    # mistral-large-123b's d 12288, and a d that is no multiple of 8
-    for dname in ("float32", "bfloat16"):
-        dtype = getattr(torch, dname)
-        for rows, d in ((1024, 4096), (8, 4096), (64, 12288), (256, 4097)):
-            x, sc = inputs(rows, d, dtype)
-            got = rn.rmsnorm(x, sc)
-            torch.cuda.synchronize()
-            want = ref.rmsnorm_ref(x, sc)
-            err = (got.float() - want.float()).abs().max().item()
-            peak = want.float().abs().max().item()
-            if dname == "float32":
-                ok, tol = err <= 1e-6 * peak, {"max_abs_over_max_ref": 1e-6}
-            else:
-                ulps = int(ref.bf16_ulp_distance(got, want).max())
-                ok, tol = ulps <= 1, {"bf16_ulps": 1, "max_ulps": ulps}
-            errs[(dname, rows, d)] = err
-            record("check", kernel="rmsnorm", dtype=dname, shape=[rows, d],
-                   vector_path=rn.vector_path(x, got), max_abs_err=err,
-                   max_abs_ref=peak, tol=tol, ok=ok)
-            check(ok, f"rmsnorm disagrees with its plain version ({dname}, "
-                      f"{rows}x{d}): max abs {err}")
-    x, sc = inputs(100, 4096, torch.bfloat16)
-    try:
-        rn.rmsnorm(x, sc, block_rows=64)
-        raised = False
-    except ValueError:
-        raised = True
-    record("check", kernel="rmsnorm", divisibility_value_error=raised)
-    check(raised, "rmsnorm rows 100 with block_rows 64 did not raise")
-
     times = {}
     for rows in (1024, 65536):
-        x, sc = inputs(rows, 4096, torch.bfloat16)
+        x = torch.randn((rows, 4096), generator=gen, device=dev).bfloat16()
+        sc = (torch.randn((4096,), generator=gen, device=dev) * 0.1 + 1
+              ).bfloat16()
         iters = 200 if rows == 1024 else 20
+        agrees(torch, "rmsnorm", rn.rmsnorm(x, sc), ref.rmsnorm_ref(x, sc),
+               shape=[rows, 4096])
         times[rows] = kernel_times(
             torch, lambda: rn.rmsnorm(x, sc), lambda: ref.rmsnorm_ref(x, sc),
             lambda: torch.nn.functional.rms_norm(x, (4096,), weight=sc,
@@ -901,7 +836,6 @@ def rmsnorm_phase(torch, dev, card: str) -> dict:
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:16",
             "launches": None,
-            "max_abs_err": errs[("bfloat16", 1024, 4096)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
@@ -923,114 +857,28 @@ def count_steps(eng) -> dict:
     return steps
 
 
-def chat_positions(rows: int, live: int, seed: int = 0) -> list[int]:
-    """Decode positions of ``rows`` slots, ``live`` of them live, drawn as
-    the granite-8b.chat cell's mix draws its lengths (prompts Gamma(2,
-    mean 1,216) in [16, 3,072], outputs Gamma(1.5, mean 164) in [2,
-    1,024]): a live row stands a uniform share into its output. Idle rows
-    get -1 (the caller points them at the scratch page). Live and idle
-    rows are spread over all the slots, as the engine's free list leaves
-    them."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    prompt = np.clip(rng.gamma(2.0, 1216 / 2.0, live), 16, 3072)
-    output = np.clip(rng.gamma(1.5, 164 / 1.5, live), 2, 1024)
-    pos = (prompt + rng.uniform(0, 1, live) * output).astype(int)
-    slots = np.full(rows, -1)
-    slots[rng.permutation(rows)[:live]] = pos
-    return [int(p) for p in slots]
-
-
 def paged_decode_phase(torch, dev, card: str) -> dict:
-    """Check the paged decode kernel against its plain version on the card
-    (bfloat16 and float32, every GQA decoder's heads, the edges of a page,
-    shared pages, idle rows), time it at the granite-8b.chat cell's decode
+    """Time the paged decode kernel at the granite-8b.chat cell's decode
     shape beside its bytes bound, the plain version and SDPA over
-    pre-gathered K/V (a yardstick the port never calls), and count its
-    launches on the granite smoke engine. Returns its kernel record; its
-    launches on the serving path are filled in after that path has run."""
-    import numpy as np
-
-    from repro_torch import configs
+    pre-gathered K/V (a yardstick the port never calls). Returns its
+    kernel record; its launches on the serving path are filled in after
+    that path has run."""
+    from repro_torch.kernels import cases, ref
     from repro_torch.kernels import paged_decode as pd
-    from repro_torch.kernels import ref
-    from repro_torch.models import transformer as T
-    from repro_torch.serve.engine import PagedServeEngine, Request
 
+    # 64 slots, 32/8 heads of 128, pages of 256, 16 a row; 24 rows live and
+    # spread over the 64, positions drawn from the chat mix (about the
+    # cell's 30k live positions a tick); idle rows on the scratch page 0
     gen = torch.Generator(device=dev).manual_seed(5)
-
-    def inputs(h, hkv, d, positions, page_len, pages, dtype, shared=False):
-        """q, pools, tables, positions; rows at -1 are idle (page 0)."""
-        b = len(positions)
-        num_pages = 1 + b * pages
-        order = torch.randperm(num_pages - 1, device=dev, generator=gen) + 1
-        table = order.reshape(b, pages)
-        if shared:
-            table = table[:1].expand(b, -1).clone()
-        idle = torch.tensor([p < 0 for p in positions], device=dev)
-        table = torch.where(idle[:, None], 0, table)
-        pos = torch.tensor([max(p, 0) for p in positions], device=dev)[:, None]
-        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
-                   for s in ((b, 1, h, d), (num_pages, page_len, hkv, d),
-                             (num_pages, page_len, hkv, d)))
-        return q, k, v, table, pos
-
-    shapes = sorted({(c.num_heads, c.num_kv_heads, c.head_dim)
-                     for a in configs.list_archs()
-                     for c in (configs.get_config(a),
-                               configs.get_smoke_config(a))
-                     if c.num_heads and not (c.use_mla or c.is_encoder)})
-    edges = [0, 1, 255, 256, 257, 4095, -1]
-    cases = [(h, hkv, d, [37, 0, 300, -1, 1000, 255], 16, 64, False)
-             for h, hkv, d in shapes + [(16, 1, 64)]]
-    cases += [(32, 8, 128, edges, pl, -(-4096 // pl), shared)
-              for pl in (256, 5) for shared in (False, True)]
-    errs = {}
-    for dname in ("bfloat16", "float32"):
-        dtype = getattr(torch, dname)
-        for h, hkv, d, positions, pl, pages, shared in cases:
-            args = inputs(h, hkv, d, positions, pl, pages, dtype, shared)
-            before = pd.launches
-            got = pd.paged_decode_attention(*args)
-            torch.cuda.synchronize()
-            want = pd.paged_decode_plain(*args)
-            err = (got.float() - want.float()).abs().max().item()
-            ok = (pd.launches == before + 1 and torch.allclose(
-                got.float(), want.float(), atol=TOL[dname], rtol=TOL[dname]))
-            extra = {}
-            if dname == "bfloat16":
-                # one bfloat16 step of the value, with a floor of 1e-4 for
-                # outputs near 0 (tests/test_torch_paged_decode.py)
-                extra["bf16_step"] = torch.allclose(
-                    got.float(), want.float(), **PAGED_BF16_STEP)
-                extra["max_ulps"] = int(ref.bf16_ulp_distance(got, want).max())
-                ok = ok and extra["bf16_step"]
-            idle = [i for i, p in enumerate(positions) if p < 0]
-            ok = ok and bool(torch.isfinite(got).all()) and all(
-                not got[i].any() for i in idle)
-            errs[(dname, h, hkv, d, pl, shared)] = err
-            record("check", kernel="paged_decode", dtype=dname,
-                   heads=[h, hkv], head_dim=d, page_len=pl, shared=shared,
-                   positions=positions, max_abs_err=err, tol=TOL[dname],
-                   ok=ok, **extra)
-            check(ok, f"paged_decode disagrees with its plain version "
-                      f"({dname}, heads {h}/{hkv}, D {d}, page_len {pl})")
-    q, k, v, table, pos = inputs(4, 2, 256, [3], 8, 1, torch.float32)
-    try:
-        pd.paged_decode_attention(q, k, v, table, pos)
-        raised = False
-    except ValueError:
-        raised = True
-    record("check", kernel="paged_decode", head_dim_value_error=raised)
-    check(raised, "paged_decode at head dim 256 did not raise ValueError")
-
-    # -- times at the granite-8b.chat cell's decode shape: 64 slots, 32/8
-    # heads of 128, pages of 256, 16 a row; 24 rows live and spread over
-    # the 64, positions drawn from the chat mix (about the cell's 30k live
-    # positions a tick)
-    positions = chat_positions(64, 24)
-    q, k, v, table, pos = inputs(32, 8, 128, positions, 256, 16,
-                                 torch.bfloat16)
+    positions = cases.chat_positions(64, 24)
+    table = (torch.randperm(64 * 16, device=dev, generator=gen) + 1
+             ).reshape(64, 16)
+    idle = torch.tensor([p < 0 for p in positions], device=dev)
+    table = torch.where(idle[:, None], 0, table)
+    pos = torch.tensor([max(p, 0) for p in positions], device=dev)[:, None]
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               for shape in ((64, 1, 32, 128), (1025, 256, 8, 128),
+                             (1025, 256, 8, 128)))
     live = sum(p + 1 for p in positions if p >= 0)
     moved = live * 2 * 8 * 128 * 2 + 2 * q.numel() * 2
     fn = lambda: pd.paged_decode_attention(q, k, v, table, pos)
@@ -1041,24 +889,12 @@ def paged_decode_phase(torch, dev, card: str) -> dict:
     mask = (torch.arange(4096, device=dev)[None, :] <= pos)[:, None, None, :]
     library = lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, kg, vg, attn_mask=mask, enable_gqa=True)
-    got, want = fn(), plain()
-    torch.cuda.synchronize()
-    # held to the plain version like the cases above: live rows past slot
-    # 32 take the row-start scan's carry from one 32-row chunk to the next
-    idle = [i for i, p in enumerate(positions) if p < 0]
-    cell_ok = (torch.allclose(got.float(), want.float(),
-                              atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
-               and torch.allclose(got.float(), want.float(),
-                                  **PAGED_BF16_STEP)
-               and bool(torch.isfinite(got).all())
-               and all(not got[i].any() for i in idle))
-    record("check", kernel="paged_decode", dtype="bfloat16",
-           heads=[32, 8], head_dim=128, page_len=256, shared=False,
-           positions=positions,
-           max_abs_err=(got.float() - want.float()).abs().max().item(),
-           tol=TOL["bfloat16"], bf16_step=PAGED_BF16_STEP, ok=cell_ok)
-    check(cell_ok, "paged_decode disagrees with its plain version at the "
-                   "granite-8b.chat cell's decode shape")
+    got = fn()
+    # idle rows read the scratch page and must come out zero
+    check(not got[idle].any(), "paged_decode wrote an idle row")
+    agrees(torch, "paged_decode", got, plain(), step=ref.PAGED_BF16_STEP,
+           positions=positions)
+    del got
     t = dict(ms=time_ms(torch, fn, 50))
     t["device_ms"], t["device_trace"] = device_ms(torch, fn, PROFILED_CALLS)
     t["plain_ms"] = time_ms(torch, plain, 5)
@@ -1071,51 +907,15 @@ def paged_decode_phase(torch, dev, card: str) -> dict:
     t["live_positions"] = live
     t["device_over_bound"] = t["device_ms"] / t["bound_ms"]
     t["achieved_tb_per_s"] = moved / (t["device_ms"] * 1e-3) / 1e12
-    t["max_abs_err"] = (got.float() - want.float()).abs().max().item()
     t["launch"] = pd.launch_shape(q, k)
     record("times", kernel="paged_decode", dtype="bfloat16",
            shape="q (64, 1, 32, 128), pools (1025, 256, 8, 128), table "
                  "(64, 16)", positions=positions, card=card, **t)
     del kg, vg, k, v
     torch.cuda.empty_cache()
-
-    # -- launches on the granite smoke engine (float32, 2 layers): one a
-    # layer a decode step, none for a prefill chunk
-    cfg = configs.get_smoke_config("granite-8b")
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                           dev)
-    eng = PagedServeEngine(cfg, params, max_slots=4, max_len=64, page_len=8)
-    rng = np.random.default_rng(0)
-    for uid, (plen, n) in enumerate([(9, 12), (20, 5), (3, 20), (33, 8),
-                                     (12, 10)]):
-        eng.submit(Request(uid, rng.integers(cfg.vocab_size, size=plen)
-                           .astype(np.int32), n))
-    steps = count_steps(eng)
-    pd.reset_launches()
-    seen = KernelWindow(torch, eng, PAGED_DECODE_KERNEL, steps, ticks=None)
-    finished = eng.run_to_completion()
-    seen.close()
-    smoke_launches = seen.kernels
-    record("paged_decode", step="smoke_engine", arch=cfg.name,
-           layers=cfg.num_layers, requests=len(finished), **steps,
-           launches=smoke_launches, host_launches=pd.launches,
-           padding_left=seen.padding)
-    check(len(finished) == 5, "the smoke engine did not finish its requests")
-    seen.check_whole("the smoke engine's run")
-    # the card runs the kernel once a layer a decode step; Python calls
-    # it twice a layer, at the decode graph's warm-up and capture
-    check(smoke_launches == cfg.num_layers * steps["decode"] > 0,
-          f"the card ran paged_decode {smoke_launches} times over "
-          f"{steps['decode']} decode steps of {cfg.num_layers} layers")
-    check(pd.launches == 2 * cfg.num_layers,
-          f"the wrapper launched paged_decode {pd.launches} times, not "
-          f"once a layer at the decode graph's warm-up and capture")
     return {"name": "paged_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
-            "replaces": None, "launches": None,
-            "smoke_engine_launches": smoke_launches,
-            "smoke_engine_steps": steps,
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "replaces": None, "launches": None, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"],
             "device_ms": t["device_ms"],
@@ -1139,12 +939,11 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
 
     from repro_torch.core.costmodel import kv_bytes_per_token
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     from repro_torch.serve import paging
-    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
-
-    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.serve.engine import PagedServeEngine
 
     kv_tok = kv_bytes_per_token(cfg)
     want_len = paging.choose_page_len(cfg, expected_tokens=768)
@@ -1160,9 +959,9 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
             pd.reset_launches()
             steps = count_steps(eng)
             torch.cuda.reset_peak_memory_stats()
-            seen = KernelWindow(torch, eng, PAGED_DECODE_KERNEL, steps)
+            witness = KernelWindow(eng, PAGED_DECODE_KERNEL, steps)
             res = serve._engine_run(cfg, params, args, engine=eng)
-            seen.close()
+            witness.close()
         print(out.getvalue(), end="", flush=True)
         printed = int(re.search(r"page_len=(\d+)", out.getvalue()).group(1))
         s = eng.stats()
@@ -1181,10 +980,11 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
                    pages_leaked=eng.alloc.allocated_pages,
                    flash_launches=fa.launches,
                    paged_decode_host_launches=pd.launches,
-                   witness_ticks=seen.ticks,
-                   witness_decode_steps=seen.steps["decode"],
-                   witness_paged_decode_launches=seen.kernels,
-                   witness_padding_left=seen.padding,
+                   witness_ticks=witness.ticks,
+                   witness_decode_steps=witness.steps["decode"],
+                   witness_paged_decode_launches=witness.counted.kernels,
+                   witness_padding_left=[witness.counted.before,
+                                         witness.counted.after],
                    decode_steps=steps["decode"], chunk_steps=steps["chunk"],
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    # bf16, reported and not gated: the dense prefill runs
@@ -1208,11 +1008,11 @@ def paged_serving(torch, cfg, params, dense_tokens: dict, trace_dir: Path
               f"choose_page_len {want_len}")
         check(fa.launches == 0,
               f"the paged run launched flash {fa.launches} times")
-        seen.check_whole(f"the paged run's first {seen.ticks} ticks")
-        check(seen.kernels == cfg.num_layers * seen.steps["decode"] > 0,
-              f"the card ran paged_decode {seen.kernels} times over "
-              f"{seen.steps['decode']} decode steps in the first "
-              f"{seen.ticks} ticks")
+        witness.check_whole(f"the paged run's first {witness.ticks} ticks")
+        on_card, decodes = witness.counted.kernels, witness.steps["decode"]
+        check(on_card == cfg.num_layers * decodes > 0,
+              f"the card ran paged_decode {on_card} times over {decodes} "
+              f"decode steps in the first {witness.ticks} ticks")
         check(pd.launches == 2 * cfg.num_layers,
               f"the wrapper launched paged_decode {pd.launches} times, not "
               f"once a layer at the decode graph's warm-up and capture")
@@ -2249,12 +2049,12 @@ def families_phase(torch, dev, card: str, size: dict = FAMILIES_SIZE,
             want = fa.flash_attention_plain(
                 q, k, v, num_q_heads=kw["num_q_heads"],
                 num_kv_heads=kw["num_kv_heads"], causal=kw["causal"])
-            tol = TOL[str(q.dtype).split(".")[1]]
+            tol = ref.TOL[q.dtype]
             errs.append((o.float() - want.float()).abs().max().item())
             ok = torch.allclose(o.float(), want.float(), atol=tol, rtol=tol)
             if q.dtype == torch.bfloat16:
                 tiles.append(ref.tile_rel_rms(o, want))
-                ok = ok and tiles[-1] <= FLASH_TILE_REL_RMS_TOL
+                ok = ok and tiles[-1] <= ref.FLASH_TILE_REL_RMS_TOL
             oks.append(ok)
         shape = [tuple(t.shape) for t in calls[0][:3]] if calls else None
         causal = calls[0][3]["causal"] if calls else None
@@ -2280,7 +2080,8 @@ def families_phase(torch, dev, card: str, size: dict = FAMILIES_SIZE,
                flash_route_launches=routes, calls_within_gates=sum(oks),
                max_abs_err=max(errs, default=None),
                worst_tile_rel_rms=max(tiles, default=None),
-               tol=TOL[cfg.dtype], tol_tile_rel_rms=FLASH_TILE_REL_RMS_TOL,
+               tol=ref.TOL[getattr(torch, cfg.dtype)],
+               tol_tile_rel_rms=ref.FLASH_TILE_REL_RMS_TOL,
                output_shape=list(flash.shape), f32_vs_ref=f32, tol_rel_rms_f32=LOGITS_REL_RMS_TOL,
                init_seconds=seconds, max_memory_allocated=peak_bf16,
                card=card)
@@ -2988,14 +2789,13 @@ def train_phase(torch, dev, card: str, size: dict = TRAIN_SIZE,
 
 
 def measurement(torch, dev, card: str) -> list[dict]:
-    """The paper's measurement path: check each kernel against its plain
-    version, time it, then drive the path end to end with the launch
-    counts set to 0 just before. Returns the kernels' records."""
+    """The paper's measurement path: time each kernel, then drive the path
+    end to end with the launch counts set to 0 just before. Returns the
+    kernels' records."""
     import math
 
     import numpy as np
 
-    from repro_torch.benchmarks import table6_global_bw as t6
     from repro_torch.core import classic
     from repro_torch.core import pchase as chase
     from repro_torch.kernels import dbuf_copy as dbuf
@@ -3005,145 +2805,20 @@ def measurement(torch, dev, card: str) -> list[dict]:
     from repro_torch.kernels import strided as st
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    rng = np.random.default_rng(1)
-
-    def exact(name, got, want, **info):
-        ok = (got.dtype == want.dtype and got.shape == want.shape
-              and torch.equal(got, want))
-        record("check", kernel=name, exact=ok, **info)
-        check(ok, f"{name} disagrees with its plain version ({info})")
-
-    def randn(shape, dtype):
-        if dtype == torch.int8:
-            return torch.randint(-128, 128, shape, generator=gen, device=dev,
-                                 dtype=torch.int8)
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    # -- check: each kernel against its plain version, exactly ----------------
-    for n, s in ((64, 4), (128, 8), (96, 12), (1024, 32)):
-        a, k = pc.uniform_init(n, s, dev), 2 * n // s
-        exact("pchase", pc.pchase_trace(a, iterations=k),
-              pc.pchase_trace_plain(a, iterations=k),
-              case=f"uniform n={n} s={s} k={k}")
-    a = torch.from_numpy(rng.permutation(256).astype(np.int32)).to(dev)
-    exact("pchase", pc.pchase_trace(a, iterations=300),
-          pc.pchase_trace_plain(a, iterations=300),
-          case="permutation n=256 k=300")
-    a = pc.uniform_init(64, 4, dev)
-    exact("pchase", pc.pchase_trace(a, 8, iterations=10),
-          pc.pchase_trace_plain(a, 8, iterations=10),
-          case="uniform n=64 s=4 k=10 start=8")
     chase_k = 1 << 16
     big = single_cycle(torch, 16 << 20, gen, dev)          # 64 MB of int32
-    big_plain = pc.pchase_trace_plain(big, iterations=chase_k)
-    exact("pchase", pc.pchase_trace(big, iterations=chase_k), big_plain,
-          case=f"single-cycle permutation, 64 MB, k={chase_k}")
     big_cycles = pc.pchase_trace_cycles(big, iterations=chase_k)
-    exact("pchase", big_cycles.indices, big_plain,
-          case=f"pchase_trace_cycles, 64 MB, k={chase_k}")
-
-    copy_cases = [((512, 128), 128), ((1024, 256), 256), ((256, 512), 64)]
-    for dtype, cols in ((torch.float32, 1024), (torch.bfloat16, 2048),
-                        (torch.int8, 4096)):
-        x = randn((GIB // (cols * dtype.itemsize), cols), dtype)
-        exact("memcpy", mc.memcpy(x), mc.memcpy_plain(x), dtype=str(dtype),
-              shape=list(x.shape), block_rows=256)
-        for shape, block in copy_cases:
-            y = randn(shape, dtype)
-            exact("memcpy", mc.memcpy(y, block_rows=block),
-                  mc.memcpy_plain(y), dtype=str(dtype), shape=list(shape),
-                  block_rows=block)
-        del x
-    # the bench path's copy (table6_global_bw x tpu_v5e, full mode)
-    y = randn(t6.COPY_SHAPE, torch.float32)
-    exact("memcpy", mc.memcpy(y, block_rows=t6.COPY_BLOCK_ROWS),
-          mc.memcpy_plain(y), dtype="torch.float32", shape=list(y.shape),
-          block_rows=t6.COPY_BLOCK_ROWS, path="bench")
-    x1g = randn((GIB // 4096, 1024), torch.float32)
-    for nb in (1, 2, 3, 4):
-        exact("dbuf_copy", dbuf.dbuf_copy(x1g, num_buffers=nb),
-              dbuf.dbuf_copy_plain(x1g, num_buffers=nb),
-              shape=list(x1g.shape), num_buffers=nb)
-    two = randn((32, 256), torch.float32)        # 32 KB: two blocks, two tiles
-    exact("dbuf_copy", dbuf.dbuf_copy(two, block_rows=16, num_buffers=4),
-          dbuf.dbuf_copy_plain(two, block_rows=16, num_buffers=4),
-          shape=[32, 256], block_rows=16, num_buffers=4)
-    # the edge routes: memcpy from a start one byte past 16-byte alignment
-    # (its byte path) and an aligned size whose last batch is cut short;
-    # dbuf_copy at sizes that end in an 80-byte tile and a 13-byte tail, over
-    # fewer tiles than CTAs and over more, at every depth it takes
-    unaligned = randn((333 * 77 + 1,), torch.int8)[1:].view(333, 77)
-    ragged = randn((1021, 1027), torch.int8)
-    for y, block in ((unaligned, 111), (ragged, 1021)):
-        exact("memcpy", mc.memcpy(y, block_rows=block), mc.memcpy_plain(y),
-              dtype="torch.int8", shape=list(y.shape), block_rows=block,
-              start_mod_16=y.data_ptr() % 16, bytes_mod_16=y.numel() % 16)
+    x1g = torch.randn((GIB // 4096, 1024), generator=gen, device=dev)
+    # the probe's (128, 256) and a (1024, 32) whose 32 rows a warp reads
+    # stay distinct up to stride 32, so that the conflicts reach 32-way
+    xs = torch.randn((128, 256), generator=gen, device=dev)
+    x1024 = torch.randn((1024, 32), generator=gen, device=dev)
     tile = dbuf._library().repro_dbuf_tile_bytes()
-    for tiles in (3, 301):
-        n = tiles * tile + 5 * 16 + 13
-        y = randn((1, n), torch.int8)
-        for nb in range(1, dbuf._library().repro_dbuf_max_buffers() + 1):
-            exact("dbuf_copy", dbuf.dbuf_copy(y, block_rows=1, num_buffers=nb),
-                  dbuf.dbuf_copy_plain(y, block_rows=1, num_buffers=nb),
-                  dtype="torch.int8", shape=[1, n], num_buffers=nb,
-                  full_tiles=tiles, last_tile_bytes=80, tail_bytes=13)
-    # dbuf_copy from a start 1, 3 and 15 bytes past 16-byte alignment (its
-    # shifted stores), over 3 tiles and a ragged 80 + 13 bytes, at every depth
-    n = 3 * tile + 5 * 16 + 13
-    for offset in (1, 3, 15):
-        y = randn((n + offset,), torch.int8)[offset:].view(1, n)
-        for nb in range(1, dbuf._library().repro_dbuf_max_buffers() + 1):
-            before = dbuf.launches
-            got = dbuf.dbuf_copy(y, block_rows=1, num_buffers=nb)
-            check(dbuf.launches == before + 1,
-                  "an unaligned dbuf_copy took more than one launch")
-            exact("dbuf_copy", got,
-                  dbuf.dbuf_copy_plain(y, block_rows=1, num_buffers=nb),
-                  dtype="torch.int8", shape=[1, n], num_buffers=nb,
-                  start_mod_16=y.data_ptr() % 16, full_tiles=3,
-                  last_tile_bytes=93)
-    # the timed (128, 256) and its smaller row counts, and the (1024, 32)
-    # of the measure phase's second stride curve; the times and the curves
-    # run on the values checked here
-    checked = {}
-    for n, w in ((32, 256), (64, 256), (128, 256), (1024, 32)):
-        x = checked[(n, w)] = randn((n, w), torch.float32)
-        ok = all(torch.equal(st.strided_gather(x, stride=s),
-                             st.strided_gather_plain(x, stride=s))
-                 for s in range(1, 258))
-        record("check", kernel="strided", shape=[n, w], strides="1..257",
-               exact=ok)
-        check(ok, f"strided disagrees with its plain version at {n}x{w}")
-
-    def raises(fn) -> bool:
-        try:
-            fn()
-        except ValueError:
-            return True
-        return False
-
-    ones = torch.ones((100, 128), device=dev)
-    bad = pc.uniform_init(64, 4, dev)
-    bad[3] = 1000
-    errors = {
-        "memcpy rows % block_rows": raises(
-            lambda: mc.memcpy(ones, block_rows=64)),
-        "dbuf_copy rows % block_rows": raises(
-            lambda: dbuf.dbuf_copy(ones, block_rows=64)),
-        "dbuf_copy num_buffers 0": raises(
-            lambda: dbuf.dbuf_copy(x1g, num_buffers=0)),
-        "dbuf_copy num_buffers above shared memory": raises(
-            lambda: dbuf.dbuf_copy(x1g, num_buffers=64)),
-        "strided above one CTA's shared memory": raises(
-            lambda: st.strided_gather(torch.ones((1024, 1024), device=dev),
-                                      stride=3)),
-        "pchase index outside the array": raises(
-            lambda: pc.pchase_trace(bad, iterations=4)),
-    }
-    record("check", value_errors_on_cuda=errors)
-    check(all(errors.values()), f"a ValueError was not raised: {errors}")
 
     # -- times: kernel, plain, library and bound ms ---------------------------
+    agrees(torch, "pchase", pc.pchase_trace(big, iterations=chase_k),
+           pc.pchase_trace_plain(big, iterations=chase_k), exact=True,
+           shape="64 MB single cycle")
     times = {}
     clock_hz = big_cycles.elapsed_cycles / big_cycles.elapsed_ns * 1e9
     times["pchase"] = dict(
@@ -3160,7 +2835,11 @@ def measurement(torch, dev, card: str) -> list[dict]:
         cycles_per_access=spread(torch, big_cycles.cycles),
         sm_clock_mhz=clock_hz / 1e6,
         shape=f"int32 single-cycle permutation, 64 MB, {chase_k} accesses")
-    del big, big_plain
+    del big
+    for name, fn, plain in (("memcpy", mc.memcpy, mc.memcpy_plain),
+                            ("dbuf_copy", dbuf.dbuf_copy,
+                             dbuf.dbuf_copy_plain)):
+        agrees(torch, name, fn(x1g), plain(x1g), exact=True, shape="1 GiB")
     out = torch.empty_like(x1g)
     copy_bound = 2 * GIB / HBM_BYTES_PER_S * 1e3
     # the copies and copy_ in turns, since they sit within a few percent
@@ -3182,8 +2861,9 @@ def measurement(torch, dev, card: str) -> list[dict]:
         plain_ms=time_ms(torch, lambda: dbuf.dbuf_copy_plain(x1g), 10),
         bound_ms=copy_bound, bound_by="bytes",
         shape="float32 (262144, 1024), 1 GiB, block_rows 256, num_buffers 2")
-    xs = checked[(128, 256)]
     idx = st.gather_index(128, 1, dev)
+    agrees(torch, "strided", st.strided_gather(xs, stride=1),
+           st.strided_gather_plain(xs, stride=1), exact=True, shape=[128, 256])
     times["strided"] = dict(
         **kernel_times(torch, lambda: st.strided_gather(xs, stride=1),
                        lambda: st.strided_gather_plain(xs, stride=1),
@@ -3276,9 +2956,7 @@ def measurement(torch, dev, card: str) -> list[dict]:
                for nb, d in depth.items() if nb >= 2),
            card=card)
 
-    # the probe's (128, 256) and a (1024, 32) whose 32 rows a warp reads
-    # stay distinct up to stride 32, so that the conflicts reach 32-way
-    for xc in (xs, checked[(1024, 32)]):
+    for xc in (xs, x1024):
         n, w = xc.shape
         stride_curve = {}
         for s in (1, 2, 3, 4, 8, 16, 32, 33, 64, 128):
@@ -3301,107 +2979,47 @@ def measurement(torch, dev, card: str) -> list[dict]:
     return [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{name}.cu",
              "replaces": f"src/repro/kernels/{sources[name]}",
-             "launches": counts[name], "max_abs_err": 0.0, **times[name],
+             "launches": counts[name], **times[name],
              "card": card} for name in mods]
 
 
-#: lanes of the scan's check and time (inference._WAVE, one wave of probes)
+#: lanes of the scan's time (inference._WAVE, one wave of probes)
 SCAN_LANES = 16
-#: accesses a lane in the scan's check against the numpy oracle and its time
-SCAN_STEPS = 1 << 16
-#: accesses a lane in the check against the plain version, whose step loop
-#: launches some 30 PyTorch operations an access
-SCAN_PLAIN_STEPS = 4096
 #: the GPUs the dissection phase dissects, and the batched engine's least
 #: speedup over the vector engine (benchmarks/profile_roundtrip.py:109)
 DISSECT_GPUS = ("GTX560Ti", "GTX780", "GTX980", "TeslaV100")
 MIN_BATCHED_SPEEDUP = 10.0
 
 
-def scan_streams(np, geoms, seed: int) -> list:
-    """Two lanes a geometry, SCAN_STEPS accesses each, at the probes' own
-    sizes: a chase at 1.5x the structure's capacity, 2 passes with its line
-    stride then 2 with a stride that does not tile (the simulator backends'
-    np.resize stream), repeated; and a seeded random stream over 4x."""
-    rng = np.random.default_rng(seed)
-    out = []
-    for g in geoms:
-        c, b = g.size_bytes, g.line_bytes
-        n = 3 * c // 2
-        odd = 7 * b if n % (7 * b) else 5 * b
-        tiled = np.resize((np.arange(-(-n // b), dtype=np.int64) * b) % n,
-                          2 * -(-n // b))
-        ragged = np.resize((np.arange(-(-n // odd), dtype=np.int64) * odd)
-                           % n, 2 * -(-n // odd))
-        out.append(np.resize(np.concatenate([tiled, ragged]), SCAN_STEPS))
-        out.append(rng.integers(0, 4 * c // b, SCAN_STEPS).astype(np.int64)
-                   * b)
-    return out
-
-
 def dissect_phase(torch, dev, card: str) -> dict:
-    """The dissection half of the main path on the card: the batched
-    engine's scan kernel against its plain version and the numpy oracle,
-    then the main path with the launch count set to 0 just before it (the
-    four GPUs dissected through the torch engine, and the torch backend's
-    traces that take the scan), the twin of profile_roundtrip's batched
-    speedup, and the kernel's times. Returns the kernel's record."""
+    """The dissection half of the main path on the card, with the scan
+    kernel's launch count set to 0 just before it (the four GPUs dissected
+    through the torch engine, and the torch backend's traces that take the
+    scan), the twin of profile_roundtrip's batched speedup, and the
+    kernel's times. Returns the kernel's record."""
     import numpy as np
 
-    from repro_torch.core import cachesim, devices, tracecache
+    from repro_torch.core import devices, tracecache
     from repro_torch.core.cachesim_torch import BatchCache
     from repro_torch.core.trace import PChaseConfig
     from repro_torch.kernels import batch_cache as bc
+    from repro_torch.kernels import cases, ref
     from repro_torch.kernels import pchase as pc
-    from repro_torch.kernels import ref
+    from repro_torch.kernels.cases import SCAN_PLAIN_STEPS, SCAN_STEPS
     from repro_torch.profile import diffing, pipeline, store
 
-    # -- check: the scan kernel, exactly --------------------------------------
+    # the timed inputs: two lanes of every registered geometry at the
+    # probes' own sizes, and their first SCAN_PLAIN_STEPS accesses (the
+    # plain version's)
     names = sorted(devices.SIM_CACHES)
     geoms = [devices.SIM_CACHES[n]().geom for n in names]
     lane_geoms = [g for g in geoms for _ in range(2)]
     check(len(lane_geoms) == SCAN_LANES, f"{len(lane_geoms)} scan lanes")
-    streams = scan_streams(np, geoms, seed=3)
-    sim = BatchCache(lane_geoms, device=dev)
-    full = sim.scan_inputs(list(enumerate(streams)))
-    # the first SCAN_PLAIN_STEPS accesses of the same inputs, uniforms too
+    full = BatchCache(lane_geoms, device=dev).scan_inputs(
+        list(enumerate(cases.scan_streams(geoms, seed=3))))
     short = {k: v[:, :SCAN_PLAIN_STEPS].contiguous()
              if k in ("sets", "lines", "valid", "u") else v
              for k, v in full.items()}
-    hits = bc.batch_cache_scan(**full)
-    short_hits = bc.batch_cache_scan(**short)
-    want = ref.batch_cache_ref(**short)
-    torch.cuda.synchronize()
-    ok = torch.equal(short_hits, want) and torch.equal(
-        hits[:, :SCAN_PLAIN_STEPS], short_hits)
-    record("check", kernel="batch_cache", against="plain",
-           lanes=SCAN_LANES, steps=SCAN_PLAIN_STEPS, exact=ok,
-           geometries=names)
-    check(ok, "batch_cache disagrees with its plain version")
-    host = hits.cpu().numpy()
-    oracle = {}
-    for i, (g, addrs) in enumerate(zip(lane_geoms, streams)):
-        if g.replacement.kind not in ("lru", "fifo"):
-            continue
-        c = cachesim.Cache(g)
-        want_i = np.fromiter((c.access(int(a)) for a in addrs), dtype=bool,
-                             count=len(addrs))
-        oracle[f"{g.name}/{'chase' if i % 2 == 0 else 'random'}"] = {
-            "exact": bool(np.array_equal(host[i], want_i)),
-            "hit_rate": float(want_i.mean())}
-    record("check", kernel="batch_cache", against="numpy Cache",
-           steps=SCAN_STEPS, lanes=oracle)
-    check(all(v["exact"] for v in oracle.values()),
-          f"batch_cache disagrees with the numpy Cache: {oracle}")
-    wide = BatchCache(cachesim.CacheGeometry("wide", 32, (1024,) * 64),
-                      device=dev)
-    try:
-        wide.simulate([np.arange(64, dtype=np.int64) * 32], force_scan=True)
-        raised = False
-    except ValueError:
-        raised = True
-    record("check", kernel="batch_cache", value_error_too_wide=raised)
-    check(raised, "a lane of 64 x 1024 ways did not raise ValueError")
 
     # -- dissect: the main path, counted --------------------------------------
     bc.launches = 0
@@ -3493,6 +3111,12 @@ def dissect_phase(torch, dev, card: str) -> dict:
     ops = 2 * int((ways_hit * full["valid"]).sum())
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / CUDA_CORE_OP_PER_S * 1e3
+    # the timed run's first SCAN_PLAIN_STEPS accesses against the plain
+    # version's, which the scan's later accesses do not change
+    agrees(torch, "batch_cache",
+           bc.batch_cache_scan(**full)[:, :SCAN_PLAIN_STEPS],
+           ref.batch_cache_ref(**short), exact=True,
+           lanes=SCAN_LANES, steps=SCAN_PLAIN_STEPS)
     plain_ms = time_ms(torch, lambda: ref.batch_cache_ref(**short), 1,
                        warmup=0)
     t = dict(
@@ -3517,7 +3141,7 @@ def dissect_phase(torch, dev, card: str) -> dict:
     return {"name": "batch_cache", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/batch_cache.cu",
             "replaces": "src/repro/core/cachesim_jax.py:288",
-            "launches": launches, "max_abs_err": 0.0, **t,
+            "launches": launches, **t,
             "batched_engine_speedup": speedup, "card": card}
 
 
@@ -3543,7 +3167,6 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.kernels import dbuf_copy as dbuf
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import pchase as pc
-    from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import strided as st
     from repro_torch.launch import serve
@@ -3604,94 +3227,26 @@ def main(argv: list[str] | None = None) -> int:
         check(bool(hgmma) and all(hgmma.values()),
               f"the bf16 flash kernels hold no HGMMA instruction: {hgmma}")
 
-    # -- check: kernel against its plain version ------------------------------
+    # -- times ----------------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def qkv(bh, bhkv, sq, sk, d, dtype):
-        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+    def qkv(bh, bhkv, sq, sk, d):
+        return tuple(torch.randn(shape, generator=gen, device=dev).bfloat16()
                      for shape in ((bh, sq, d), (bhkv, sk, d), (bhkv, sk, d)))
 
-    def skipped_kv_tile(q, k, v, want, h, hkv, causal):
-        """The tile gate's reading of a kernel that skipped the last 64-row
-        kv tile of the first head (its output from the plain version on
-        k, v without those rows); None where there is one kv tile."""
-        cut = (k.shape[1] - 1) // 64 * 64
-        if cut == 0:
-            return None
-        faulted = want.clone()
-        faulted[0] = fa.flash_attention_plain(
-            q, k[:, :cut], v[:, :cut], num_q_heads=h, num_kv_heads=hkv,
-            causal=causal)[0]
-        return ref.tile_rel_rms(faulted, want)
-
-    errs = {}
-    # (bh, H, Hkv, sq, sk, d, causal): granite-8b's heads at the serving
-    # path's lengths (the dense engine's prompts of 4-255 tokens, the
-    # loop's 4 x 256) and beyond, a rectangular non-causal case, the small
-    # head dims and the GQA ratios of tests/test_kernels.py
-    cases = [(32, 32, 8, s, s, 128, True) for s in (37, 101, 255, 256, 2048)]
-    cases += [(128, 32, 8, 256, 256, 128, True),
-              (32, 32, 8, 128, 512, 128, False)]
-    cases += [(8, 8, 8, 96, 96, d, True) for d in (16, 32, 64)]
-    cases += [(h, h, hkv, 256, 256, 64, True)
-              for h, hkv in ((8, 2), (4, 1), (16, 8))]
-    # the families phase's new shapes: hubert-xlarge (16 heads, D 80,
-    # non-causal, 2 x 1024 frames) and internvl2-2b (GQA 16/8, 4 x 512)
-    cases += list(FLASH_NEW_SHAPES.values())
-    for dname in ("bfloat16", "float32"):
-        dtype = getattr(torch, dname)
-        for bh, h, hkv, sq, sk, d, causal in cases:
-            q, k, v = qkv(bh, bh // h * hkv, sq, sk, d, dtype)
-            kw = dict(num_q_heads=h, num_kv_heads=hkv, causal=causal,
-                      block_q=sq, block_k=sk)
-            before = dict(fa.route_launches)
-            got = fa.flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            route = next(r for r, n in fa.route_launches.items()
-                         if n != before[r])
-            want = fa.flash_attention_plain(q, k, v, num_q_heads=h,
-                                            num_kv_heads=hkv, causal=causal)
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.allclose(got.float(), want.float(), atol=TOL[dname],
-                                rtol=TOL[dname])
-            tiles = {}
-            if dname == "bfloat16":
-                tiles = {"tile_rel_rms": ref.tile_rel_rms(got, want),
-                         "tol_tile_rel_rms": FLASH_TILE_REL_RMS_TOL,
-                         "skipped_kv_tile_rel_rms": skipped_kv_tile(
-                             q, k, v, want, h, hkv, causal)}
-                ok = ok and tiles["tile_rel_rms"] <= FLASH_TILE_REL_RMS_TOL
-            errs[(dname, bh, sq, sk, d, h, hkv, causal)] = err
-            record("check", kernel="flash_attention", dtype=dname,
-                   shape=[bh, sq, sk, d], heads=[h, hkv], causal=causal,
-                   route=route, max_abs_err=err, tol=TOL[dname], ok=ok,
-                   **tiles)
-            fault = tiles.get("skipped_kv_tile_rel_rms")
-            check(fault is None or fault > FLASH_TILE_REL_RMS_TOL,
-                  f"a skipped kv tile reads {fault}, inside the tile gate")
-            check(route == fa.ROUTES[dtype],
-                  f"{dname} flash took the {route} route")
-            check(ok, f"flash_attention disagrees with its plain version "
-                      f"({dname}, bh={bh}, sq={sq}, sk={sk}, d={d})")
-    q = torch.zeros((32, 300, 128), device=dev, dtype=torch.bfloat16)
-    try:
-        fa.flash_attention(q, q[:8], q[:8], num_q_heads=32, num_kv_heads=8)
-        raised = False
-    except ValueError:
-        raised = True
-    record("check", kernel="flash_attention", divisibility_value_error=raised)
-    check(raised, "seq 300 with block 256 did not raise ValueError")
-
-    # -- times ----------------------------------------------------------------
     # bf16, causal, granite-8b's heads: one dense-engine prompt (bh 32 at a
     # ragged 101 and at 256), the loop's prefill (bh 128 x 256), and 2048
     times = {}
     for bh, s in ((32, 256), (32, 2048), (128, 256), (32, 101)):
-        q, k, v = qkv(bh, bh // 4, s, s, 128, torch.bfloat16)
+        q, k, v = qkv(bh, bh // 4, s, s, 128)
         kw = dict(num_q_heads=32, num_kv_heads=8, causal=True, block_q=s,
                   block_k=s)
         q4, k4, v4 = (t.view(bh // 32, -1, s, 128) for t in (q, k, v))
         iters = 10 if s == 2048 else 50
+        agrees(torch, "flash_attention", fa.flash_attention(q, k, v, **kw),
+               fa.flash_attention_plain(q, k, v, num_q_heads=32,
+                                        num_kv_heads=8, causal=True),
+               tile=True, shape=[bh, s, s, 128])
         t = kernel_times(
             torch, lambda: fa.flash_attention(q, k, v, **kw),
             lambda: fa.flash_attention_plain(q, k, v, num_q_heads=32,
@@ -3709,10 +3264,14 @@ def main(argv: list[str] | None = None) -> int:
     # with enable_gqa)
     for label, (bh, h, hkv, sq, sk, d, causal) in FLASH_NEW_SHAPES.items():
         bhkv = bh // h * hkv
-        q, k, v = qkv(bh, bhkv, sq, sk, d, torch.bfloat16)
+        q, k, v = qkv(bh, bhkv, sq, sk, d)
         kw = dict(num_q_heads=h, num_kv_heads=hkv, causal=causal,
                   block_q=sq, block_k=sk)
         q4, k4, v4 = (t.view(bh // h, -1, t.shape[1], d) for t in (q, k, v))
+        agrees(torch, "flash_attention", fa.flash_attention(q, k, v, **kw),
+               fa.flash_attention_plain(q, k, v, num_q_heads=h,
+                                        num_kv_heads=hkv, causal=causal),
+               tile=True, shape=[bh, sq, sk, d], path=label)
         t = kernel_times(
             torch, lambda: fa.flash_attention(q, k, v, **kw),
             lambda: fa.flash_attention_plain(q, k, v, num_q_heads=h,
@@ -3722,15 +3281,14 @@ def main(argv: list[str] | None = None) -> int:
             20, "flash_wgmma")
         t["bound_ms"], t["bound_by"] = attention_bound(
             bh, bhkv, sq, sk, d, causal, 2, BF16_FLOP_PER_S)
-        t["max_abs_err"] = errs[("bfloat16", bh, sq, sk, d, h, hkv, causal)]
         times[label] = t
         record("times", kernel="flash_attention", dtype="bfloat16",
                shape=[bh, sq, sk, d], heads=[h, hkv], causal=causal,
                path=label, card=card, **t)
 
-    # the kernels that the serving phases do not launch, checked and timed
-    # before them: torch.profiler traces taken after the serving phases'
-    # large traces miss kernels
+    # the kernels that the serving phases do not launch, timed before them:
+    # torch.profiler traces taken after the serving phases' large traces
+    # miss kernels
     rms_record = rmsnorm_phase(torch, dev, card)
     paged_record = paged_decode_phase(torch, dev, card)
     measured = measurement(torch, dev, card)
@@ -3893,7 +3451,6 @@ def main(argv: list[str] | None = None) -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
         "launches": main_launches,
-        "max_abs_err": errs[("bfloat16", 32, 256, 256, 128, 32, 8, True)],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "device_ms": t["device_ms"],

@@ -29,8 +29,8 @@
 // Pallas grid order, or contiguous runs) the copy ended with the slowest SM's
 // share and ran 3-5% longer than torch's copy_ on an H100 SXM at every depth
 // and order. An L2 evict_first hint on the bulk copies gained nothing, and
-// tiles below 20 KB lost (copy_sweep.py at the repository root, whose
-// designs are in copy_variants.cu; PERF.md).
+// tiles below 20 KB lost (a sweep of the designs timed in turns with
+// copy_; PERF.md).
 //
 // Bulk copies need 16-byte-aligned addresses on both sides. The destination
 // is always aligned (the wrapper allocates it). A source whose start is not

@@ -21,9 +21,9 @@
 // SM a fixed share, the previous design (8 CTAs of 256 threads an SM in a
 // grid-stride loop of four loads) among them, end with the slowest share
 // and ran 5-8% longer than torch's copy_ on an H100 SXM; cache hints on the
-// loads or stores gained nothing (copy_sweep.py at the repository root,
-// whose designs are in copy_variants.cu; PERF.md). The array's last batch is
-// predicated, so the ragged end needs no loop of its own.
+// loads or stores gained nothing (a sweep of the designs timed in turns
+// with copy_; PERF.md). The array's last batch is predicated, so the
+// ragged end needs no loop of its own.
 //
 // One launch a call. When either pointer is not 16-byte aligned, that launch
 // is a kernel that copies single bytes: a path only kept right, never timed.

@@ -1,10 +1,28 @@
 """Plain oracles for the port's kernels: twins of ``repro/kernels/ref.py``
-(numpy for the chase, PyTorch for the rest)."""
+(numpy for the chase, PyTorch for the rest), and the tolerances that hold
+the CUDA kernels to them on the card."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+#: a floating-point kernel against its plain version, by dtype: the JAX
+#: package's own kernel tolerances (``tests/test_kernels.py``), as atol and
+#: rtol alike
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: bf16 flash against its plain version: the worst relative RMS
+#: difference over the (64 rows, D) tiles of every head (:func:`tile_rel_rms`).
+#: The bf16 rounding of P and of the output gives about 2.6e-3 (an
+#: emulation of the kernel's rounding in plain PyTorch, bh 4 x S 2048);
+#: one head's last kv tile skipped gives 0.13 there and more at shorter
+#: lengths. The allclose at TOL alone lets such a fault pass at S 2048.
+FLASH_TILE_REL_RMS_TOL = 1e-2
+#: paged decode against its plain version in bfloat16, beside TOL: one
+#: bfloat16 step of the value (both round nearly the same f32 sum once),
+#: with an absolute floor for outputs near 0, whose sums cancel (an f32
+#: difference of 1e-6 there is many steps)
+PAGED_BF16_STEP = dict(rtol=2 ** -7, atol=1e-4)
 
 
 def pchase_ref(array: np.ndarray, iterations: int, start: int = 0) -> np.ndarray:

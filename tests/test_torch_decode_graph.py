@@ -15,9 +15,9 @@ slot-resident); only live rows are compared (an idle row's attention is
 zeros on the kernel's path). The graph is captured again after a new
 pool and after new weights, and not after ``reset_paging`` alone. The
 card runs the paged decode kernel once a layer on every decode tick, as
-a torch.profiler trace counts it, while Python calls its wrapper only at
-the capture tick; a replayed tick records ``engine.replay`` and no layer
-span or counter.
+a padded torch.profiler trace counts it (``tracing.kernels_in_window``),
+while Python calls its wrapper only at the capture tick; a replayed tick
+records ``engine.replay`` and no layer span or counter.
 """
 
 import dataclasses
@@ -25,7 +25,6 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from test_torch_paged_decode import kernels_on_card
 
 from repro_torch import configs, tracing
 from repro_torch.kernels import paged_decode as pd
@@ -283,8 +282,9 @@ def test_every_decode_tick_runs_the_kernel_on_card_and_a_replay_only_replays():
     for _ in range(4):
         tracing.drain()
         pd.reset_launches()
-        on_card = kernels_on_card(eng.step)
-        ticks.append((on_card, pd.launches, tracing.drain()))
+        seen = tracing.kernels_in_window(eng.step, "paged_decode_split")
+        assert seen.whole, seen
+        ticks.append((seen.kernels, pd.launches, tracing.drain()))
     tracing.enable(False)
     # every tick decodes: the card runs the kernel once a layer each time,
     # and Python calls the wrapper at the capture tick only (its warm-up

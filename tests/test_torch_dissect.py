@@ -39,7 +39,7 @@ from repro_torch.core import cachesim, devices, inference, pchase, spectrum
 from repro_torch.core import trace, tracecache
 from repro_torch.core.cachesim import CacheGeometry, ReplacementPolicy
 from repro_torch.core.cachesim_torch import TORCH_ENGINE_VERSION, BatchCache
-from repro_torch.kernels import batch_cache, ref
+from repro_torch.kernels import batch_cache, cases, ref
 from repro_torch.profile import diffing, pipeline, store
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -532,20 +532,32 @@ def _card():
 
 
 @pytest.mark.gpu
-def test_scan_kernel_matches_plain_on_card():
-    """Every registered geometry but the prefetching L2, the custom ones and
-    the stochastic ones, in one heterogeneous batch: exact, one launch."""
+@pytest.mark.parametrize("streams", ["mixed", "probes"])
+def test_scan_kernel_matches_plain_on_card(streams):
+    """In one heterogeneous batch, one launch, exact: ``mixed``, every
+    registered geometry, the custom ones and the stochastic ones on the
+    reference tests' stream; ``probes``, two lanes of every registered
+    geometry on the streams ``chip_smoke.py`` times
+    (:func:`cases.scan_streams`). The plain version holds the first 4,096
+    accesses; the lru/fifo lanes equal the reference's Cache."""
     _card()
     rng = np.random.default_rng(5)
-    geoms = ([devices.SIM_CACHES[n]().geom for n in SIM]
-             + _CUSTOM_GEOMS + _STOCHASTIC_GEOMS)
-    lanes = [(i, _mixed(g, rng)) for i, g in enumerate(geoms)]
+    if streams == "mixed":
+        geoms = ([devices.SIM_CACHES[n]().geom for n in SIM]
+                 + _CUSTOM_GEOMS + _STOCHASTIC_GEOMS)
+        lanes = [(i, _mixed(g, rng)) for i, g in enumerate(geoms)]
+    else:
+        geoms = [devices.SIM_CACHES[n]().geom for n in SIM for _ in range(2)]
+        lanes = list(enumerate(cases.scan_streams(geoms[::2], seed=3)))
     ins = BatchCache(geoms, device="cuda").scan_inputs(lanes)
     before = batch_cache.launches
     got = batch_cache.batch_cache_scan(**ins)
     assert batch_cache.launches == before + 1
-    want = ref.batch_cache_ref(**ins)
-    assert torch.equal(got, want)
+    plain = cases.SCAN_PLAIN_STEPS
+    short = {k: v[:, :plain].contiguous()
+             if k in ("sets", "lines", "valid", "u") else v
+             for k, v in ins.items()}
+    assert torch.equal(got[:, :plain], ref.batch_cache_ref(**short))
     hits = got.cpu().numpy()
     for (i, addrs), g in zip(lanes, geoms):
         if g.replacement.kind in ("lru", "fifo"):

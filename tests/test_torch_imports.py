@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch/``, not
-``chip_smoke.py``, ``copy_sweep.py`` nor the ``examples/torch_*.py``
-twins imports jax, the JAX package or its experiment package
-``benchmarks``, and importing the kernels' entry points builds and loads
-nothing (the build is lazy, at first launch). On a card,
+``chip_smoke.py`` nor the ``examples/torch_*.py`` twins imports jax, the
+JAX package or its experiment package ``benchmarks``, and importing the
+kernels' entry points builds and loads nothing (the build is lazy, at
+first launch). On a card,
 ``examples/torch_dissect_serve.py --quick`` runs the dissect→deploy loop
 to its ``ok:`` line, and the port's harness runs Table 8 on the kernels."""
 
@@ -17,7 +17,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "copy_sweep.py",
+    ROOT / "chip_smoke.py",
     ROOT / "examples" / "torch_dissect_memory.py",
     ROOT / "examples" / "torch_dissect_serve.py",
     ROOT / "examples" / "torch_fleet_serve.py",
@@ -80,7 +80,7 @@ def test_guard_sees_the_whole_port():
             "classic.py", "trace.py", "cachesim.py", "devices.py",
             "bankconflict.py", "littles_law.py", "costmodel.py",
             "profile.py", "store.py", "paging.py", "chip_smoke.py",
-            "copy_sweep.py", "tracecache.py", "spectrum.py", "inference.py",
+            "tracecache.py", "spectrum.py", "inference.py",
             "diffing.py", "pipeline.py", "cachesim_torch.py",
             "batch_cache.py", "torch_dissect_memory.py", "tiers.py",
             "slo.py", "fleet.py", "frontend.py", "faults.py",

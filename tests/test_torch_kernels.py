@@ -22,8 +22,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rn
 
-DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+DTYPES = {"float32": (jnp.float32, torch.float32, ref.TOL[torch.float32]),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, ref.TOL[torch.bfloat16])}
 
 
 def _inputs(batch, h, hkv, sq, sk, d, seed=0):
@@ -122,22 +122,55 @@ def _card():
         pytest.skip("needs an NVIDIA card (torch sees no CUDA device)")
 
 
+#: flash on the card, (batch, H, Hkv, sq, sk, D, causal): granite-8b's
+#: heads at the serving path's lengths (the dense engine's prompts of
+#: 4-255 tokens, the loop's 4 x 256) and beyond, a rectangular non-causal
+#: case, the head dims (100 pads the bf16 route's operands to 104) and the
+#: GQA ratios of tests/test_kernels.py at batch 1 and 2, hubert-xlarge's
+#: forward (2 x 1024 frames, D 80, non-causal) and internvl2-2b's prefill
+#: (4 x 512). chip_smoke.py times granite's heads at bh 32 x S 101, 256 and
+#: 2,048 and bh 128 x S 256, and the last two.
+CARD_CASES = {f"granite-S{s}": (1, 32, 8, s, s, 128, True)
+              for s in (37, 101, 255, 256, 2048)}
+CARD_CASES |= {"granite-bh128-S256": (4, 32, 8, 256, 256, 128, True),
+               "granite-128x512-non-causal": (1, 32, 8, 128, 512, 128, False)}
+CARD_CASES |= {f"D{d}": (1, 8, 8, 96, 96, d, True)
+               for d in (16, 32, 64, 128, 100)}
+CARD_CASES |= {f"GQA{h}/{hkv}-batch{b}": (b, h, hkv, 256, 256, 64, True)
+               for h, hkv in ((8, 2), (4, 1), (16, 8)) for b in (1, 2)}
+CARD_CASES |= {"hubert-xlarge": (2, 16, 16, 1024, 1024, 80, False),
+               "internvl2-2b": (4, 16, 8, 512, 512, 128, True)}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("sq,sk,causal", [(37, 37, True), (256, 256, True),
-                                          (128, 512, False)])
-def test_kernel_matches_plain_on_card(dtype, sq, sk, causal):
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_kernel_matches_plain_on_card(dtype, case):
+    """One launch on the dtype's route, within TOL of the plain version;
+    bfloat16 also within the tile gate, which a kernel that skipped the
+    first head's last kv tile would fail."""
     _card()
+    batch, h, hkv, sq, sk, d, causal = CARD_CASES[case]
     _, tdt, tol = DTYPES[dtype]
     q, k, v = (torch.from_numpy(a).to("cuda", tdt)
-               for a in _inputs(1, 32, 8, sq, sk, 128))
-    kw = dict(num_q_heads=32, num_kv_heads=8, causal=causal)
-    before = fa.launches
+               for a in _inputs(batch, h, hkv, sq, sk, d))
+    kw = dict(num_q_heads=h, num_kv_heads=hkv, causal=causal)
+    fa.reset_launches()
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.route_launches[fa.ROUTES[tdt]] == fa.launches == 1
     want = fa.flash_attention_plain(q, k, v, **kw)
+    assert got.shape == want.shape and got.dtype == tdt
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if tdt != torch.bfloat16:
+        return
+    assert ref.tile_rel_rms(got, want) <= ref.FLASH_TILE_REL_RMS_TOL
+    cut = (sk - 1) // 64 * 64
+    if cut:
+        faulted = want.clone()
+        faulted[0] = fa.flash_attention_plain(q, k[:, :cut], v[:, :cut],
+                                              **kw)[0]
+        assert ref.tile_rel_rms(faulted, want) > ref.FLASH_TILE_REL_RMS_TOL
 
 
 @pytest.mark.gpu
@@ -150,6 +183,9 @@ def test_kernel_rejects_on_card():
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(1, 2), q, q, num_q_heads=2,
                            num_kv_heads=2)
+    q = torch.zeros((32, 300, 128), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not divisible"):
+        fa.flash_attention(q, q[:8], q[:8], num_q_heads=32, num_kv_heads=8)
 
 
 # -- rmsnorm -----------------------------------------------------------------
@@ -204,8 +240,14 @@ def test_bf16_ulp_distance():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows,d", [(8, 4096), (64, 12288), (32, 4100)])
+@pytest.mark.parametrize("rows,d", [(8, 4096), (1024, 4096), (65536, 4096),
+                                    (64, 12288), (32, 4100), (256, 4097)])
 def test_rmsnorm_kernel_matches_plain_on_card(dtype, rows, d):
+    """granite-8b's decode batch and prefill batch (4 x 256) at d 4,096
+    and 65,536 rows of it (the two timed shapes), mistral-large-123b's d
+    12,288, and widths that take
+    the scalar tail; float32 within 1e-6 of the peak, bfloat16 within one
+    step; rows that block_rows does not divide raise."""
     _card()
     _, tdt, _ = DTYPES[dtype]
     x, sc = (torch.from_numpy(a).to("cuda", tdt) for a in _rms_inputs(rows, d))

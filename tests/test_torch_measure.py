@@ -11,8 +11,6 @@ skip without one.
 """
 
 import dataclasses
-import importlib.util
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +25,7 @@ from repro.kernels import ref as jref
 from repro.kernels.dbuf_copy import dbuf_copy as jdbuf_copy
 from repro.kernels.pchase import chase_array_from_indices as jchase_array
 from repro.kernels.pchase import pallas_trace_backend
+from repro_torch.benchmarks import table6_global_bw as t6
 from repro_torch.core import classic, pchase as cpchase, trace
 from repro_torch.kernels import dbuf_copy as dbuf
 from repro_torch.kernels import memcpy as mc
@@ -334,42 +333,6 @@ def test_dbuf_copy_ragged_int8_matches_jax(num_buffers):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_copy_sweep_lists_only_designs_the_kernels_take():
-    """copy_variants.cu's entries refuse (cudaErrorInvalidValue) a design
-    outside these limits: threads a multiple of 32 up to 512, ILP 1-16 in
-    powers of two, one side's cache hint at a time; a tile a multiple of
-    128, at most 16 stages within a CTA's shared memory, a lag below the
-    depth and at most 8. Each design is listed once, the launched ones
-    among them. Without a card the sweep exits, as every entry point
-    does."""
-    spec = importlib.util.spec_from_file_location(
-        "copy_sweep", Path(__file__).resolve().parents[1] / "copy_sweep.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    for designs in (list(cs.memcpy_designs()), list(cs.dbuf_designs())):
-        assert len(designs) == len({tuple(d.values()) for d in designs})
-    memcpy_designs = list(cs.memcpy_designs())
-    for d in memcpy_designs:
-        assert d["threads"] % 32 == 0 and 32 <= d["threads"] <= 512
-        assert d["ilp"] in (1, 2, 4, 8, 16) and d["span"] in (0, 1, 2)
-        assert d["load_hint"] in range(4) and d["store_hint"] in range(4)
-        assert d["load_hint"] == 0 or d["store_hint"] == 0
-    assert dict(ctas_per_sm=0, threads=256, ilp=2, span=1, load_hint=0,
-                store_hint=0) in memcpy_designs
-    dbuf_designs = list(cs.dbuf_designs())
-    for d in dbuf_designs:
-        assert d["tile_bytes"] % 128 == 0 and 1 <= d["num_buffers"] <= 16
-        assert 128 + d["num_buffers"] * d["tile_bytes"] <= 232448
-        assert 0 <= d["lag"] < d["num_buffers"] and d["lag"] <= 8
-        assert d["tiles"] in (0, 1, 2) and d["hint"] in (0, 1)
-    for nb in cs.DBUF_DEPTHS:
-        assert dict(num_buffers=nb, tile_bytes=cs.DBUF_TILE,
-                    lag=cs.launched_lag(nb), tiles=2, hint=0) in dbuf_designs
-    if not torch.cuda.is_available():
-        with pytest.raises(SystemExit, match="CUDA"):
-            cs.main(["--designs"])
-
-
 # -- strided gather --------------------------------------------------------------
 
 
@@ -438,9 +401,17 @@ def _card():
 
 @pytest.mark.gpu
 def test_pchase_kernel_matches_plain_on_card():
+    """Uniform chases of two passes, a permutation, a start past 0, and
+    the timed 64 MB single-cycle chase of 2^16 accesses; an index outside
+    the array raises."""
     _card()
-    for a, k, start in ((_uniform(1024, 32), 64, 0), (_uniform(64, 4), 10, 8),
-                        (_single_cycle(4096, 3), 5000, 11)):
+    cases = [(_uniform(n, s), 2 * n // s, 0)
+             for n, s in ((64, 4), (128, 8), (96, 12), (1024, 32))]
+    cases += [(np.random.default_rng(1).permutation(256).astype(np.int32),
+               300, 0), (_uniform(64, 4), 10, 8),
+              (_single_cycle(4096, 3), 5000, 11),
+              (_single_cycle(16 << 20, 1), 1 << 16, 0)]
+    for a, k, start in cases:
         x = torch.from_numpy(a).cuda()
         before = pc.launches
         got = pc.pchase_trace(x, start, iterations=k)
@@ -450,14 +421,29 @@ def test_pchase_kernel_matches_plain_on_card():
         want = pc.pchase_trace_plain(x, start, iterations=k)
         assert torch.equal(got, want) and torch.equal(cyc.indices, want)
         assert bool((cyc.cycles > 0).all()) and cyc.elapsed_ns > 0
+    bad = torch.from_numpy(_uniform(64, 4)).cuda()
+    bad[3] = 1000
+    with pytest.raises(ValueError, match="outside"):
+        pc.pchase_trace(bad, iterations=4)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_copies_match_plain_on_card(dtype):
+    """The CPU tests' shapes, two blocks of two tiles, the bench path's
+    (2048, 512) and 1 GiB (the timed size), at block_rows 256; the
+    ValueErrors on CUDA tensors."""
     _card()
-    for shape, block in COPY_SHAPES + [((6, 7), 3)]:
-        x = _array(shape, dtype)[1].cuda()
+    tdt = DTYPES[dtype][1]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    shape = (1 << 18, 4096 // tdt.itemsize)
+    gib = (torch.randint(-128, 128, shape, generator=g, device="cuda",
+                         dtype=tdt) if dtype == "int8" else
+           torch.randn(shape, generator=g, device="cuda").to(tdt))
+    shapes = COPY_SHAPES + [((6, 7), 3), ((32, 256), 16),
+                            (t6.COPY_SHAPE, t6.COPY_BLOCK_ROWS)]
+    for x, block in [(_array(shape, dtype)[1].cuda(), block)
+                     for shape, block in shapes] + [(gib, 256)]:
         assert torch.equal(mc.memcpy(x, block_rows=block), mc.memcpy_plain(x))
         for nb in (1, 2, 3, 4, 9):
             assert torch.equal(
@@ -467,6 +453,9 @@ def test_copies_match_plain_on_card(dtype):
         mc.memcpy(torch.ones((100, 128), device="cuda"), block_rows=64)
     with pytest.raises(ValueError, match="!= 0"):
         dbuf.dbuf_copy(torch.ones((100, 128), device="cuda"), block_rows=64)
+    for nb in (0, 64):
+        with pytest.raises(ValueError, match="num_buffers"):
+            dbuf.dbuf_copy(x, num_buffers=nb)
 
 
 def _int8_on_card(n, seed, offset=0):
@@ -531,9 +520,11 @@ def test_dbuf_copy_unaligned_start_on_card(num_buffers):
 
 @pytest.mark.gpu
 def test_strided_matches_plain_on_card():
+    """The timed (128, 256) and its smaller row counts, and the (1024, 32)
+    of the measurement path's second stride curve, at strides 1-257."""
     _card()
-    for n in (32, 64, 128):
-        x = torch.randn((n, 256), device="cuda")
+    for shape in ((32, 256), (64, 256), (128, 256), (1024, 32)):
+        x = torch.randn(shape, device="cuda")
         for stride in range(1, 258):
             assert torch.equal(st.strided_gather(x, stride=stride),
                                st.strided_gather_plain(x, stride=stride))

@@ -22,8 +22,9 @@ import pytest
 import torch
 
 from repro_torch import configs, tracing
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, cases, ops
 from repro_torch.kernels import paged_decode as pd
+from repro_torch.kernels.ref import PAGED_BF16_STEP, TOL
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import PagedServeEngine, Request, ServeEngine
@@ -36,13 +37,6 @@ SHAPES = sorted({(c.num_heads, c.num_kv_heads, c.head_dim)
                  for c in (configs.get_config(a), configs.get_smoke_config(a))
                  if c.num_heads and not (c.use_mla or c.is_encoder)})
 EDGES = (0, 1, 255, 256, 257, 4095)
-#: kernel against the plain version: float32 by the repo's kernel
-#: tolerance (the sums run in another order); bfloat16 by its tolerance
-#: and, tighter, one bfloat16 step of the value with a floor of 1e-4 (both
-#: round nearly the same f32 value once; an output near 0, a sum that
-#: cancels, is many steps from its neighbour for an f32 difference of 1e-6)
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-BF16_STEP = dict(rtol=2 ** -7, atol=1e-4)
 
 
 def _case(h, hkv, d, positions, *, page_len, pages_per_row, idle=(),
@@ -209,8 +203,12 @@ def _card():
         pytest.skip("needs an NVIDIA card (torch sees no CUDA device)")
 
 
-def _on_card(dtype, h, hkv, d, positions, **kw):
-    case = _case(h, hkv, d, positions, dtype=dtype, device="cuda", **kw)
+def _on_card(dtype, h, hkv, d, positions, idle=(), **kw):
+    """The kernel against its plain version: float32 within TOL (the sums
+    run in another order), bfloat16 within TOL and one bfloat16 step;
+    finite, and the idle rows exactly zero."""
+    case = _case(h, hkv, d, positions, idle=idle, dtype=dtype, device="cuda",
+                 **kw)
     before = pd.launches
     got = pd.paged_decode_attention(*case)
     torch.cuda.synchronize()
@@ -219,8 +217,11 @@ def _on_card(dtype, h, hkv, d, positions, **kw):
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
     if dtype == torch.bfloat16:
-        torch.testing.assert_close(got.float(), want.float(), **BF16_STEP)
-    return got, want
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **PAGED_BF16_STEP)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[list(idle)], torch.zeros_like(got[list(idle)]))
+    return got
 
 
 @pytest.mark.gpu
@@ -239,9 +240,8 @@ def test_kernel_matches_plain_on_card(dtype, h, hkv, d):
 def test_kernel_at_the_page_edges_on_card(dtype, shared, page_len):
     _card()
     pages = -(-4096 // page_len)
-    got, _ = _on_card(dtype, 32, 8, 128, EDGES + (3000,), page_len=page_len,
-                      pages_per_row=pages, shared=shared, idle=(6,))
-    assert torch.equal(got[6], torch.zeros_like(got[6]))
+    _on_card(dtype, 32, 8, 128, EDGES + (3000,), page_len=page_len,
+             pages_per_row=pages, shared=shared, idle=(6,))
 
 
 @pytest.mark.gpu
@@ -258,23 +258,39 @@ def test_kernel_idle_rows_read_nothing_on_card():
     assert torch.isfinite(got).all()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_at_the_chat_cell_s_64_rows_on_card(dtype):
-    """The granite-8b.chat cell's decode shape: 64 rows of 32/8 heads of
-    128 on pages of 256, 16 a row, live rows spread over all 64 with idle
-    rows between; the rows past 32 take their starts from the scan's carry
-    over one 32-row chunk, and the page edges stand past it too."""
-    _card()
+def _chat_rows():
+    """The positions ``chip_smoke.py`` times the kernel at
+    (:func:`cases.chat_positions`: 24 live rows of 64 at the chat mix's
+    lengths, spread over the slots). Returns positions, idle rows."""
+    positions = cases.chat_positions(64, 24)
+    return ([max(p, 0) for p in positions],
+            tuple(r for r, p in enumerate(positions) if p < 0))
+
+
+def _edge_rows():
+    """Positions over 0-4,095 with the page edges past row 32, and 12
+    idle rows between the live ones."""
     rng = np.random.default_rng(7)
     positions = [int(p) for p in rng.integers(0, 4096, 64)]
     for row, p in zip((33, 34, 35, 36, 37, 63), (4095, 0, 255, 256, 257,
                                                   4095)):
         positions[row] = p
-    idle = (0, 3, 7, 12, 20, 31, 32, 40, 45, 50, 58, 62)
-    got, _ = _on_card(dtype, 32, 8, 128, positions, page_len=256,
-                      pages_per_row=16, idle=idle)
-    assert torch.equal(got[list(idle)], torch.zeros_like(got[list(idle)]))
+    return positions, (0, 3, 7, 12, 20, 31, 32, 40, 45, 50, 58, 62)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", ["edges", "chat"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_the_chat_cell_s_64_rows_on_card(dtype, rows):
+    """The granite-8b.chat cell's decode shape: 64 rows of 32/8 heads of
+    128 on pages of 256, 16 a row, live rows spread over all 64 with idle
+    rows between; the rows past 32 take their starts from the scan's carry
+    over one 32-row chunk. ``edges`` puts the page edges past it too;
+    ``chat`` is the case the kernel is timed at."""
+    _card()
+    positions, idle = _edge_rows() if rows == "edges" else _chat_rows()
+    got = _on_card(dtype, 32, 8, 128, positions, page_len=256,
+                   pages_per_row=16, idle=idle)
     assert all(got[r].any() for r in range(64) if r not in idle)
 
 
@@ -287,9 +303,11 @@ def test_kernel_rejects_on_card():
         pd.paged_decode_attention(q.half(), k.half(), v.half(), table, p)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         pd.paged_decode_attention(q, k.bfloat16(), v, table, p)
-    wide = _case(2, 1, 160, [3], page_len=8, pages_per_row=1, device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
-        pd.paged_decode_attention(*wide)
+    for d in (160, 256):
+        wide = _case(2, 1, d, [3], page_len=8, pages_per_row=1,
+                     device="cuda")
+        with pytest.raises(ValueError, match="head dim"):
+            pd.paged_decode_attention(*wide)
     deep = _case(32, 1, 16, [3], page_len=8, pages_per_row=1, device="cuda")
     with pytest.raises(ValueError, match="GQA group"):
         pd.paged_decode_attention(*deep)
@@ -308,28 +326,6 @@ def test_kernel_rejects_on_card():
     assert err != 0
     with pytest.raises(RuntimeError, match="launch failed"):
         _build.check(lib, err, "paged_decode_attention")
-
-
-def kernels_on_card(fn, name="paged_decode_split") -> int:
-    """The kernels whose name holds ``name`` that the card runs during
-    ``fn()``, from a torch.profiler trace of CUDA activity (it sees a
-    replayed graph's kernels). A trace loses device events at its ends, so
-    the call is padded with 1,024 spin kernels on each side, and the count
-    holds only where spins are left at both ends."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(1024):
-            torch.cuda._sleep(1 << 12)
-        fn()
-        for _ in range(1024):
-            torch.cuda._sleep(1 << 12)
-        torch.cuda.synchronize()
-    dev = sorted((e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    assert "spin_kernel" in dev[0].name and "spin_kernel" in dev[-1].name
-    return sum(name in e.name for e in dev)
 
 
 @pytest.mark.gpu
@@ -365,27 +361,48 @@ def test_decode_path_launches_once_a_layer_on_card():
 
 
 @pytest.mark.gpu
-def test_engine_on_card_launches_on_decode_ticks_only():
+@pytest.mark.parametrize("work,geometry", [
+    ([(5, 6)], dict(max_slots=2, max_len=32, page_len=4)),
+    # more requests than slots: admissions and finishes between replays
+    ([(9, 12), (20, 5), (3, 20), (33, 8), (12, 10)],
+     dict(max_slots=4, max_len=64, page_len=8))])
+def test_engine_on_card_launches_on_decode_ticks_only(work, geometry):
+    """Each tick runs the kernel on the card once a layer if it decodes
+    and not for a prefill chunk. Python calls the wrapper at the first
+    decode tick only, twice a layer (the decode graph's warm-up and its
+    capture); every later tick replays the graph with no call. The tokens
+    are the dense engine's."""
     _card()
     cfg, params = _smoke(device="cuda")
-    eng = PagedServeEngine(cfg, params, max_slots=2, max_len=32, page_len=4)
-    eng.submit(_requests(cfg, [(5, 6)])[0])
+    eng = PagedServeEngine(cfg, params, **geometry)
+    for r in _requests(cfg, work):
+        eng.submit(r)
+    real, decodes = eng._step, []
+
+    def counted(toks, *rest):
+        decodes[-1] += toks.shape[1] == 1
+        return real(toks, *rest)
+    eng._step = counted
     pd.reset_launches()
-    assert kernels_on_card(eng.step) == pd.launches == 0   # the prefill
-    # the first decode tick: the decode graph's warm-up runs the kernel
-    # once a layer, and its capture calls the wrapper once more a layer
-    assert kernels_on_card(eng.step) == cfg.num_layers
-    assert pd.launches == 2 * cfg.num_layers
-    # a replay runs it once a layer on the card, with no call from Python
-    pd.reset_launches()
-    assert kernels_on_card(eng.step) == cfg.num_layers
-    assert pd.launches == 0
-    dense = ServeEngine(cfg, params, max_slots=2, max_len=32)
-    for e in (eng, dense):
-        if e is dense:
-            e.submit(_requests(cfg, [(5, 6)])[0])
-        e.run_to_completion()
-    assert eng.finished[0].generated == dense.finished[0].generated
+    ticks = []
+    while eng.waiting or eng.prefilling or eng.ready or eng.active:
+        decodes.append(0)
+        before = pd.launches
+        seen = tracing.kernels_in_window(eng.step, "paged_decode_split")
+        assert seen.whole, seen
+        ticks.append((decodes[-1], seen.kernels, pd.launches - before))
+    layers = cfg.num_layers
+    assert [k for _, k, _ in ticks] == [layers * d for d, _, _ in ticks]
+    first = [d for d, _, _ in ticks].index(1)
+    assert [c for _, _, c in ticks] == (
+        [0] * first + [2 * layers] + [0] * (len(ticks) - first - 1))
+    assert sum(decodes) > 2
+    dense = ServeEngine(cfg, params, max_slots=geometry["max_slots"],
+                        max_len=geometry["max_len"])
+    for r in _requests(cfg, work):
+        dense.submit(r)
+    want = {r.uid: r.generated for r in dense.run_to_completion()}
+    assert {r.uid: r.generated for r in eng.finished} == want
 
 
 @pytest.mark.gpu

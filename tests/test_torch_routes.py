@@ -7,8 +7,10 @@ launch. The strided gather moves rows in the widest unit (4, 2 or 1
 bytes) that divides them. On the CPU these tests hold the Python around
 the kernels (the dispatch, the rejections, the tensor-map operands, the
 unit choice) and the plain versions to the JAX package at the serving
-path's ragged lengths; the tests marked ``gpu`` hold each CUDA route to
-its plain version on the card and skip without one.
+path's ragged lengths; the tests marked ``gpu`` take the float32 route
+and hold the strided gather to its plain version on the card, and skip
+without one (``tests/test_torch_kernels.py`` holds both flash routes to
+the plain version at every shape the card times).
 """
 
 import jax.numpy as jnp
@@ -20,11 +22,7 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import strided as st
-
-from test_torch_smoke import smoke
-
-BF16_TOL = 2e-2          # tests/test_kernels.py:95
-TILE_TOL = smoke().FLASH_TILE_REL_RMS_TOL
+from repro_torch.kernels.ref import FLASH_TILE_REL_RMS_TOL, TOL
 
 
 def _inputs(bh, bhkv, sq, sk, d, seed=0):
@@ -111,11 +109,12 @@ def test_plain_matches_pallas_at_ragged_lengths(bh, h, hkv, s):
                                   for a in arrays), interpret=True, **kw)
     got = fa.flash_attention(*(torch.from_numpy(a).bfloat16()
                                for a in arrays), **kw)
+    tol = TOL[torch.bfloat16]
     np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want, np.float32), atol=BF16_TOL,
-                               rtol=BF16_TOL)
-    assert ref.tile_rel_rms(
-        got, torch.from_numpy(np.asarray(want, np.float32))) < TILE_TOL
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+    assert ref.tile_rel_rms(got, torch.from_numpy(
+        np.asarray(want, np.float32))) < FLASH_TILE_REL_RMS_TOL
 
 
 def _bf16_rounding_of_the_kernel(q, k, v, h, hkv, causal):
@@ -136,18 +135,18 @@ def _bf16_rounding_of_the_kernel(q, k, v, h, hkv, causal):
                                         (2, 2, 1, 640)])
 def test_tile_gate_passes_bf16_rounding_and_fails_a_skipped_kv_tile(
         bh, h, hkv, s):
-    """chip_smoke.py's bf16 flash gate sits between the rounding the
-    kernel does and a kernel that skips the first head's last kv tile."""
+    """The bf16 flash tile gate sits between the rounding the kernel
+    does and a kernel that skips the first head's last kv tile."""
     q, k, v = (torch.from_numpy(a).bfloat16()
                for a in _inputs(bh, bh // h * hkv, s, s, 128, seed=s))
     kw = dict(num_q_heads=h, num_kv_heads=hkv, causal=True)
     want = fa.flash_attention_plain(q, k, v, **kw)
     rounded = _bf16_rounding_of_the_kernel(q, k, v, h, hkv, True)
-    assert ref.tile_rel_rms(rounded, want) < TILE_TOL / 2
+    assert ref.tile_rel_rms(rounded, want) < FLASH_TILE_REL_RMS_TOL / 2
     cut = (s - 1) // 64 * 64
     faulted = want.clone()
     faulted[0] = fa.flash_attention_plain(q, k[:, :cut], v[:, :cut], **kw)[0]
-    assert ref.tile_rel_rms(faulted, want) > 5 * TILE_TOL
+    assert ref.tile_rel_rms(faulted, want) > 5 * FLASH_TILE_REL_RMS_TOL
 
 
 @pytest.mark.parametrize("s,tile", [(64, 0), (100, 1), (130, 0), (130, 2)])
@@ -175,48 +174,6 @@ def _card():
         pytest.skip("needs an NVIDIA card (torch sees no CUDA device)")
 
 
-def _bf16_on_card(bh, h, hkv, sq, sk, d, causal):
-    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16)
-               for a in _inputs(bh, bh // h * hkv, sq, sk, d))
-    kw = dict(num_q_heads=h, num_kv_heads=hkv, causal=causal)
-    fa.reset_launches()
-    got = fa.flash_attention(q, k, v, block_q=sq, block_k=sk, **kw)
-    torch.cuda.synchronize()
-    assert fa.route_launches == {"bf16_wgmma": 1, "f32_fma": 0}
-    want = fa.flash_attention_plain(q, k, v, **kw)
-    assert got.shape == want.shape and got.dtype == torch.bfloat16
-    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL,
-                               rtol=BF16_TOL)
-    assert ref.tile_rel_rms(got, want) <= TILE_TOL
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("s", [37, 101, 255, 256, 2048])
-def test_bf16_kernel_lengths_on_card(s):
-    _card()
-    _bf16_on_card(32, 32, 8, s, s, 128, True)
-
-
-@pytest.mark.gpu
-def test_bf16_kernel_rectangular_non_causal_on_card():
-    _card()
-    _bf16_on_card(32, 32, 8, 128, 512, 128, False)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 100])
-def test_bf16_kernel_head_dims_on_card(d):
-    _card()
-    _bf16_on_card(8, 8, 8, 96, 96, d, True)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("h,hkv", [(8, 2), (4, 1), (16, 8)])
-def test_bf16_kernel_gqa_on_card(h, hkv):
-    _card()
-    _bf16_on_card(2 * h, h, hkv, 256, 256, 64, True)
-
-
 @pytest.mark.gpu
 def test_f32_takes_its_own_route_on_card():
     _card()
@@ -226,7 +183,8 @@ def test_f32_takes_its_own_route_on_card():
     torch.cuda.synchronize()
     assert fa.route_launches == {"bf16_wgmma": 0, "f32_fma": 1}
     want = fa.flash_attention_plain(q, k, v, num_q_heads=4, num_kv_heads=1)
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(got, want, atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), k.half(), v.half(), num_q_heads=4,
                            num_kv_heads=1)

@@ -3,7 +3,9 @@ configs, on the CPU: off they are one shared no-op and record nothing;
 on they change no served token and no trained parameter, nest under
 ``engine.step`` with their parents and request ids, and the paged
 engine's ``kv.live`` and ``kv.gathered`` counters equal hand counts over
-a scripted run of admissions, prefill chunks, decodes and a preemption."""
+a scripted run of admissions, prefill chunks, decodes and a preemption.
+The kernel witness's count over a padded window's device events is
+whole only where padding is left at both ends."""
 
 import dataclasses
 
@@ -221,3 +223,25 @@ def test_train_step_gives_the_same_loss_and_parameters_traced():
     assert [s.name for s in spans if s.parent is None] == [
         "train.forward", "train.backward", "optim.adamw"]
     assert {s.name for s in spans} >= {"attn.core"}
+
+
+SPIN = "void at::cuda::(anonymous namespace)::spin_kernel(long)"
+KERNEL = "paged_decode_split"
+
+
+@pytest.mark.parametrize("names,kernels,whole", [
+    # padding left at both ends: every event of the window's own is there
+    ([SPIN] * 3 + [KERNEL, "combine", KERNEL, "gemm"] + [SPIN] * 2, 2, True),
+    # the trace lost the leading spins and a kernel after them
+    (["combine", KERNEL, "gemm"] + [SPIN] * 4, 1, False),
+    # and at the end
+    ([SPIN] * 4 + [KERNEL, "gemm", KERNEL], 2, False),
+    # the window ran nothing of its own
+    ([SPIN] * 6, 0, False),
+    ([], 0, False)])
+def test_window_count_is_whole_only_with_padding_at_both_ends(
+        names, kernels, whole):
+    got = tracing.count_in_window(names, KERNEL)
+    assert got.kernels == kernels and got.whole is whole
+    if whole:
+        assert (got.before, got.after) == (3, 2)
